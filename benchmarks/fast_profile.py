@@ -1,6 +1,6 @@
 """Fast-profile lab: throughput + image delta of the declared non-parity
 fast profile (``config.fast_config`` — see its docstring for the measured
-contents) against the parity profile, on the live chip.
+contents) against the parity profile, on the GPU.
 
 Two measurements per scene, both at 1080p:
 
@@ -73,7 +73,9 @@ def main() -> None:
                 "mode": mode,
                 "rays_per_s": r["value"],
                 "ms_per_frame": 1e3 * r["seconds_per_frame"],
-                "backend": r["backend"],
+                "platform": r["platform"],
+                "device_kind": r["device_kind"],
+                "card": r["card"],
             }
             out["throughput"].append(row)
             print(json.dumps(row))

@@ -1,30 +1,9 @@
-"""Shared example setup: import path + pin to a live device (CPU fallback
-for hung TPUs)."""
+"""Shared example setup: make the package importable without an install."""
 
 import pathlib
 import sys
 
-# `python examples/foo.py` puts examples/ (not the repo root) on sys.path;
-# make the package importable without an install.
+# `python examples/foo.py` puts examples/ (not the repo root) on sys.path.
 _ROOT = str(pathlib.Path(__file__).resolve().parent.parent)
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
-
-import jax
-
-
-def use_live_device():
-    """Pin the default device to CPU unless TPU compute provably works."""
-    import pathlib
-    import subprocess
-    import sys
-
-    code = "import jax, jax.numpy as jnp; print(float(jnp.sum(jnp.ones((64, 64)))))"
-    try:
-        proc = subprocess.run([sys.executable, "-c", code], timeout=90, capture_output=True, text=True)
-        alive = proc.returncode == 0 and "4096" in proc.stdout
-    except subprocess.TimeoutExpired:
-        alive = False
-    if not alive:
-        jax.config.update("jax_default_device", jax.devices("cpu")[0])
-    return alive

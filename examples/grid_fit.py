@@ -14,9 +14,7 @@ import pathlib
 
 import numpy as np
 
-from _common import use_live_device
-
-use_live_device()
+import _common  # noqa: F401  (sys.path bootstrap)
 
 import jax.numpy as jnp  # noqa: E402
 

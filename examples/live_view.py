@@ -1,7 +1,7 @@
 """Live interactive viewer: orbit the reference scene from a browser.
 
-The TPU-native version of the reference app's windowed loop
-(``/root/reference/Code/src/main.cpp:87-98``): frames render on the TPU via
+The browser version of the reference app's windowed loop
+(``Code/src/main.cpp:87-98`` in the reference): frames render on the GPU via
 the fused Pallas kernel, stream to the browser as a multipart PNG stream,
 and mouse orbit/pan/zoom come back as JSON events into the same native
 navigation controller (arcball + low-pass decay) the headless session uses.
@@ -43,12 +43,9 @@ def main():
         cfg = s.fast_config(cfg)
     scene = {"reference": s.reference_scene, "flagship": s.flagship_scene,
              "fractal": s.fractal_scene}[args.scene]()
-    pc = default_pallas_config(scene)
+    # The Triton kernel compiles for GPUs only; elsewhere it is interpreted.
+    pc = default_pallas_config(scene, interpret=jax.devices()[0].platform != "gpu")
     light, mat = s.reference_light(), s.reference_material()
-
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
-    if not on_tpu:
-        pc = default_pallas_config(scene, tile_h=8, tile_w=128, interpret=True)
 
     @jax.jit
     def render(cam):

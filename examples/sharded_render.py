@@ -8,9 +8,7 @@ import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from _common import use_live_device  # noqa: E402
-
-use_live_device()
+import _common  # noqa: E402,F401  (sys.path bootstrap)
 
 import jax  # noqa: E402
 
@@ -37,22 +35,21 @@ def main():
     print(f"output shape: {sharded.shape}")
     assert equal, "sharded render must be bitwise identical on the same backend"
 
-    # The load-balanced 2-D tile queue (the >=16-chip production layout):
-    # each device renders an equal-count static work-list of (8, 128) tiles.
+    # The fused Triton kernel per row slab (interpret mode on the CPU mesh),
+    # interleaved row blocks so every device sees a representative mix.
     from sdf3d_tpu.ops import PallasRenderConfig
-    from sdf3d_tpu.parallel import render_pallas_tiles
+    from sdf3d_tpu.parallel import render_pallas_sharded
 
-    pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True)
-    tiles_img = np.asarray(
-        render_pallas_tiles(scene, cam, light, mat, cfg, mesh, pc)
+    pc = PallasRenderConfig(interpret=True)
+    kernel_img = np.asarray(
+        render_pallas_sharded(scene, cam, light, mat, cfg, mesh, pc, layout="interleaved")
     )
     # Ray-form kernel vs the XLA reference: agreement to the documented
     # ~1-ulp-per-step class (a few razor-edge pixels land ~1e-5).
-    err = np.abs(tiles_img - single).max(axis=-1)
-    print(f"tile-queue sharded vs single-device: max |err| {err.max():.2e}, "
+    err = np.abs(kernel_img - single).max(axis=-1)
+    print(f"kernel sharded vs single-device: max |err| {err.max():.2e}, "
           f"pixels > 1e-3: {(err > 1e-3).sum()}")
     assert (err > 1e-3).sum() == 0 and float(err.mean()) < 1e-5
-
 
 if __name__ == "__main__":
     main()

@@ -3,9 +3,7 @@
 import argparse
 import dataclasses
 
-from _common import use_live_device
-
-use_live_device()
+import _common  # noqa: F401  (sys.path bootstrap)
 
 import sdf3d_tpu as s  # noqa: E402
 from sdf3d_tpu.interact import render_turntable  # noqa: E402

@@ -1,11 +1,11 @@
-"""sdf3d-tpu: a TPU-native differentiable signed-distance-field renderer.
+"""sdf3d-tpu: a differentiable signed-distance-field renderer for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 SDF renderer at ``/root/reference`` (ezorzin/SDF3D) — analytic SDF scenes with
 CSG, sphere-trace rendering with soft shadows and Blinn-Phong shading —
-extended with the TPU-native capabilities the reference lacks: end-to-end
+extended with the capabilities the reference lacks: end-to-end
 differentiability (implicit-function gradients through the march), fused
-Pallas kernels, multi-chip tile sharding over a device mesh, and inverse
+Pallas (Triton) kernels, multi-device tile sharding over a mesh, and inverse
 rendering.
 """
 

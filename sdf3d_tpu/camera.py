@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.sdf.node import as_f32, mat_vec, vnormalize
@@ -73,7 +73,7 @@ class Camera:
 
     @staticmethod
     def orbit(azimuth_deg=0.0, elevation_deg=0.0, radius=2.0, target=(0.0, 0.2, 0.0), fov_deg=60.0) -> "Camera":
-        """Arcball-style orbit camera: the TPU-side replacement for the
+        """Arcball-style orbit camera: the replacement for the
         reference's interactive mouse/gamepad navigation
         (``main.cpp:93-94``) — pose is an explicit, differentiable input
         instead of accumulated mouse state."""

@@ -3,26 +3,28 @@
 The reference has no persistence of any kind — no state outlives the process
 (``/root/reference/Code/src/main.cpp:103-107``).  Here fits checkpoint the
 scene-parameter pytree + optimizer state (SURVEY.md §5): atomic single-file
-snapshots via flax serialization (msgpack), with a JSON manifest carrying the
-step counter and loss history.  Renders themselves are stateless.
+snapshots of the pytree's leaves as a NumPy ``.npz`` file, with a JSON
+manifest carrying the step counter and loss history.  Renders themselves are stateless.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import pathlib
 import tempfile
 from typing import Any
 
-import flax.serialization as fser
 import jax
+import numpy as np
 
 
 def save_checkpoint(path: str | os.PathLike, state: Any, step: int, meta: dict | None = None) -> None:
     """Atomically write ``state`` (any pytree) + metadata to ``path``.
 
-    Layout: ``<path>`` is a directory with ``state.msgpack`` and
+    Layout: ``<path>`` is a directory with ``state.npz`` (leaf ``i`` of
+    ``jax.tree_util.tree_leaves(state)`` under key ``leaf_i``) and
     ``manifest.json``.  Writes go to a temp name then ``os.replace`` — a
     crash mid-write never corrupts the previous checkpoint.
 
@@ -36,8 +38,10 @@ def save_checkpoint(path: str | os.PathLike, state: Any, step: int, meta: dict |
         return
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    state = jax.device_get(state)
-    payload = fser.to_bytes(state)
+    leaves = jax.device_get(jax.tree_util.tree_leaves(state))
+    buf = io.BytesIO()
+    np.savez(buf, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+    payload = buf.getvalue()
 
     def atomic_write(name: str, data: bytes):
         fd, tmp = tempfile.mkstemp(dir=path, prefix=name + ".")
@@ -50,21 +54,24 @@ def save_checkpoint(path: str | os.PathLike, state: Any, step: int, meta: dict |
                 os.unlink(tmp)
             raise
 
-    atomic_write("state.msgpack", payload)
+    atomic_write("state.npz", payload)
     manifest = {"step": int(step), **(meta or {})}
     atomic_write("manifest.json", json.dumps(manifest, indent=2).encode())
 
 
 def load_checkpoint(path: str | os.PathLike, state_template: Any):
     """Restore ``(state, manifest)``; ``state_template`` supplies the pytree
-    structure (standard flax ``from_bytes`` contract).  Returns ``(None,
+    structure, whose leaves are replaced in order.  Returns ``(None,
     None)`` if no checkpoint exists — callers start fresh deterministically
     (the SURVEY §5 failure-recovery story: re-init from the last snapshot).
     """
     path = pathlib.Path(path)
-    state_file = path / "state.msgpack"
+    state_file = path / "state.npz"
     if not state_file.exists():
         return None, None
-    state = fser.from_bytes(state_template, state_file.read_bytes())
+    treedef = jax.tree_util.tree_structure(state_template)
+    with np.load(state_file) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(treedef.num_leaves)]
+    state = jax.tree_util.tree_unflatten(treedef, leaves)
     manifest = json.loads((path / "manifest.json").read_text())
     return state, manifest

@@ -1,6 +1,6 @@
 """Command-line driver: render / fit / bench / info.
 
-The TPU-native replacement for the reference's interactive host program
+The replacement for the reference's interactive host program
 (``/root/reference/Code/src/main.cpp:34-110``): instead of a window + arcball
 loop, explicit camera parameters and image files; instead of a build step,
 jit compilation; instead of frame tic/toc, a rays/s benchmark.
@@ -147,7 +147,7 @@ def cmd_render(args) -> int:
     if args.engine == "pallas":
         from sdf3d_tpu.ops import default_pallas_config, render_pallas
 
-        img = render_pallas(cfg, default_pallas_config(scene, interpret=args.interpret), scene, cam, light, mat)
+        img = render_pallas(cfg, default_pallas_config(scene), scene, cam, light, mat)
     else:
         img = s.render(scene, cam, light, mat, cfg)
 
@@ -233,8 +233,7 @@ def cmd_bench(args) -> int:
     from sdf3d_tpu.bench import run_benchmark
 
     result = run_benchmark(width=args.width or 1920, height=args.height or 1080,
-                           engine=args.engine, interpret=args.interpret,
-                           profile=getattr(args, "profile", "parity"))
+                           engine=args.engine, profile=getattr(args, "profile", "parity"))
     print(json.dumps(result))
     return 0
 
@@ -274,7 +273,6 @@ def main(argv=None) -> int:
     pr.add_argument("--engine", choices=["xla", "pallas"], default="xla")
     pr.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="'fast' = config.fast_config (non-parity, measured faster)")
-    pr.add_argument("--interpret", action="store_true", help="Pallas interpreter mode (CPU)")
     pr.set_defaults(fn=cmd_render)
 
     pf = sub.add_parser("fit", help="inverse-rendering demo: recover scene params")
@@ -302,7 +300,6 @@ def main(argv=None) -> int:
     pb.add_argument("--width", type=int, default=0)
     pb.add_argument("--height", type=int, default=0)
     pb.add_argument("--engine", choices=["xla", "pallas"], default="pallas")
-    pb.add_argument("--interpret", action="store_true")
     pb.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="'fast' = config.fast_config (non-parity, measured faster)")
     pb.set_defaults(fn=cmd_bench)
@@ -311,6 +308,9 @@ def main(argv=None) -> int:
     pi.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
+    from sdf3d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Debugging & validation: the TPU analogues of sanitizers (SURVEY.md §5).
+"""Debugging & validation: the analogues of sanitizers (SURVEY.md §5).
 
 The reference has no error handling at all (``main.cpp:34-110``) and GPU
 debugging meant looking at the screen.  Here:
@@ -10,9 +10,10 @@ debugging meant looking at the screen.  Here:
   bound; a non-unit plane normal or a bad custom primitive breaks it and
   destabilizes the march (exactly the failure mode seen when optimizing a
   raw plane normal — fit.py's ``trainable`` docs);
-- :func:`finite_params` — every scene leaf is finite;
-- :func:`interpret_mode` — run any Pallas kernel in the interpreter for
-  inspection (`pltpu.force_tpu_interpret_mode`).
+- :func:`finite_params` — every scene leaf is finite.
+
+Pallas kernels run in the interpreter through their own switches
+(``PallasRenderConfig.interpret``, ``FitConfig.pallas_interpret``).
 """
 
 from __future__ import annotations
@@ -98,15 +99,6 @@ def validate_scene(scene: SDFNode, strict: bool = False) -> list[str]:
     if strict and problems:
         raise ValueError("; ".join(problems))
     return problems
-
-
-@contextlib.contextmanager
-def interpret_mode():
-    """Force all Pallas kernels onto the interpreter inside the context."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 @contextlib.contextmanager

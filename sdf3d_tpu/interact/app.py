@@ -1,4 +1,4 @@
-"""Headless frame-loop driver: the reference's render loop, TPU-style.
+"""Headless frame-loop driver: the reference's render loop, without a window.
 
 The reference loop (``/root/reference/Code/src/main.cpp:87-98``) is
 begin → poll events → navigate → plot → end.  Here the same loop runs
@@ -55,10 +55,9 @@ class InteractiveSession:
         self.stats: list[FrameStats] = []
 
     def camera(self) -> Camera:
-        # Host-side numpy pose math (a 4×4 inverse), not jnp: per-frame eager
-        # device ops cost milliseconds each on relay backends (dispatch
-        # discipline, docs/architecture.md).  The numpy leaves upload as
-        # arguments of the one jitted render call.
+        # Host-side numpy pose math (a 4×4 inverse), not jnp: no per-frame
+        # eager device dispatches (dispatch discipline, docs/architecture.md).
+        # The numpy leaves upload as arguments of the one jitted render call.
         V = np.asarray(self.nav.view_matrix(), np.float32)
         Vinv = np.linalg.inv(V)
         from sdf3d_tpu.camera import REFERENCE_BASE_POSITION

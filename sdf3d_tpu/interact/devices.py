@@ -3,7 +3,7 @@
 The reference reads live gamepads through GLFW every frame
 (``/root/reference/Code/src/main.cpp:94`` → Neutrino's
 ``gamepad_navigation``) and mouse buttons through the window system.  On a
-headless TPU host there is no GLFW; the native device surfaces are:
+headless accelerator host there is no GLFW; the native device surfaces are:
 
 - **Linux joystick API** (``/dev/input/js*``): :class:`JoystickReader`
   parses the kernel's 8-byte ``js_event`` records non-blockingly and feeds

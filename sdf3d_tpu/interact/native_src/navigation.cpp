@@ -1,6 +1,6 @@
 // Native navigation runtime: arcball orbit / pan / zoom with low-pass decay.
 //
-// TPU-native counterpart of the reference's Neutrino navigation layer — the
+// Native counterpart of the reference's Neutrino navigation layer — the
 // external C++ lib whose API the app drives per frame:
 //   gl->mouse_navigation(orbit_rate, pan_rate, decay)    (main.cpp:93)
 //   gl->gamepad_navigation(ori_rate, pan_rate, decay_o, decay_p, deadzone)

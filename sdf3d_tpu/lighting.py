@@ -8,7 +8,7 @@ rendering.
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.sdf.node import as_f32

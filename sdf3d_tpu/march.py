@@ -1,6 +1,6 @@
 """Sphere-trace, soft-shadow, AO marches and normal estimation (pure XLA).
 
-This is the TPU-native re-design of the per-fragment loops in
+This is the batched re-design of the per-fragment loops in
 ``/root/reference/Code/shader/voxel_fragment.frag``:
 
 - ``raymarch`` (``:86-103``)  → :func:`sphere_trace`
@@ -9,8 +9,8 @@ This is the TPU-native re-design of the per-fragment loops in
   autodiff variants, north-star choices)
 - (no AO in the reference)    → :func:`ambient_occlusion`
 
-Design: the GLSL loops `break` per pixel; on TPU there is no per-lane break,
-so every march is a *masked* loop — all lanes step together, a boolean
+Design: the GLSL loops `break` per pixel; a whole-array XLA program has no
+per-lane break, so every march is a *masked* loop — all lanes step together, a boolean
 ``active`` lane-mask freezes finished rays, and (optionally) the whole loop
 exits once no lane is active (`lax.while_loop` with an `any` reduction —
 the batch-level analogue of the per-fragment break, free of data-dependent
@@ -155,34 +155,6 @@ def _sphere_trace_relaxed(sdf_fn: SDFFn, origins: jnp.ndarray, directions: jnp.n
     )
     t, _, _, _, _ = _run_masked_loop(cfg.max_steps, cfg.early_exit, body, carry0)
     return t
-
-
-def march_step_map(sdf_fn: SDFFn, origins: jnp.ndarray, directions: jnp.ndarray, cfg: MarchConfig):
-    """Per-ray ``(distance, steps_executed)`` for the unrelaxed primary
-    march — the exact masked-loop semantics of :func:`sphere_trace`, with a
-    step counter.  The single source of truth for march-work accounting
-    (load-balance projections in ``benchmarks/scaling_report`` and the
-    tile-queue balanced planner, ``parallel/tile_queue.estimate_tile_work``)
-    — one counter, so march-semantics changes cannot silently diverge from
-    the work model."""
-    from jax import lax
-
-    batch = origins.shape[:-1]
-
-    def body(_, carry):
-        dist, steps, active = carry
-        p = origins + dist[..., None] * directions
-        sv = sdf_fn(p)
-        steps = steps + active
-        dist_new = jnp.where(active > 0, dist + sv, dist)
-        done = (dist_new > cfg.max_distance) | (sv < cfg.epsilon)
-        return dist_new, steps, active * (1.0 - done.astype(jnp.float32))
-
-    z = jnp.zeros(batch, jnp.float32)
-    dist, steps, _ = lax.fori_loop(
-        0, cfg.max_steps, body, (z, z, jnp.ones(batch, jnp.float32))
-    )
-    return dist, steps
 
 
 def hit_mask(distance: jnp.ndarray, cfg: MarchConfig) -> jnp.ndarray:
@@ -343,7 +315,7 @@ def normal_tetrahedron(sdf_fn: SDFFn, points: jnp.ndarray, eps: float) -> jnp.nd
 
 def normal_autodiff(sdf_fn: SDFFn, points: jnp.ndarray) -> jnp.ndarray:
     """Exact SDF gradient normals via ``jax.grad`` — free under autodiff and
-    the cleanest choice on TPU (no epsilon, 1 forward + 1 reverse sweep).
+    the cleanest choice (no epsilon, 1 forward + 1 reverse sweep).
 
     Works for any batch shape because the SDF is pointwise: the gradient of
     ``sum(sdf(p))`` w.r.t. ``p`` is the per-point gradient.

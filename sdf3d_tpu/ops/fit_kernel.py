@@ -1,36 +1,41 @@
 """Fused L2 loss + gradient kernel: the inverse-rendering hot path in ONE
-Pallas launch and zero XLA round-trips.
+Pallas launch (Triton route) and zero XLA round-trips.
 
 The generic pallas fit step (ops/render_pallas.py custom VJP) costs, per
 frame at 1080p: forward kernel (writes rgb + residual planes, 50 MB) → XLA
 loss pass (reads rgb + target, reduces) → XLA cotangent pass (writes
-``g_rgb = 2(img − target)``, 25 MB) → backward kernel (reads g_rgb +
-residuals, 75 MB).  But the backward kernel *re-traces the whole shading
+``g_rgb = 2(img − target)``, 25 MB) → XLA backward (reads g_rgb +
+residuals, 75 MB).  But the backward *re-traces the whole shading
 expression anyway* — and the march/shadow planes it re-attaches are exactly
 what the forward kernel computes.  So for the L2 pixel loss the entire fit
-step fuses into a single tile program:
+step fuses into a single block program:
 
     march (while_loop)  →  shadow march (while_loop)  →  AO
         →  value_and_grad of   Σ mask · (shade(params) − target)²
 
 with ``jax.value_and_grad`` running at kernel-trace time (AD on the jaxpr
-before Mosaic lowering, same mechanism as ops/render_bwd_kernel.py).  The
-marches produce the residual planes *in registers*; the differentiated
-shading re-attaches them via the implicit-function theorem
-(render_bwd_kernel._shade_tile).  Per frame vs the two-launch version this
-removes the rgb + residual HBM round trip (~100 MB at 1080p), the duplicate
-ray-gen/normals/shading primal, and one kernel launch; HBM traffic drops to
-target reads (25 MB) + one (8, 128) partial plane per tile (~1 MB).
+before lowering).  The marches produce the residual planes *in registers*;
+the differentiated shading re-attaches them via the implicit-function
+theorem (shade_planes.shade_tile).  Per frame vs the two-launch version
+this removes the rgb + residual round trip through device memory (~100 MB
+at 1080p), the duplicate ray-gen/normals/shading primal, and launches;
+memory traffic drops to target reads (25 MB) + one partial vector per
+program.
+
+Each program writes one partial vector of length
+``next_pow2(P + N_UNIFORMS + 1)`` (grads, then the loss); XLA sums the
+partials outside the kernel, so nothing is carried between programs —
+Triton programs run in parallel, in no order.
 
 ``mask`` zeroes padding lanes (local rows ≥ slab height, cols ≥ W) so padded
 tiles contribute exact zeros to both loss and grads — required because the
 target is zero-padded, which would otherwise make sky padding "visible".
 
 Beyond the plain L2, the kernel fuses the loss configurations fit.py itself
-recommends (round-4): the **multiscale pyramid** (per-tile 2×2 mean pooling
-as MXU matmuls, recursive odd-edge cropping matching ``fit._avg_pool2``) and
-the **silhouette coverage term** (the march carries the ray-min-SDF plane
-and its argmin distance; the in-kernel loss adds
+recommends: the **multiscale pyramid** (per-tile 2×2 mean pooling as a
+reshape + sum, recursive odd-edge cropping matching ``fit._avg_pool2``)
+and the **silhouette coverage term** (the march carries the ray-min-SDF
+plane and its argmin distance; the in-kernel loss adds
 ``sil_w · Σ(σ((2ε − min_s)/β) − mask)²`` with envelope-theorem gradient
 re-attachment identical to ``diff.ray_min_sdf_diff``) — so the recommended
 pose-fit configuration (L2 + coverage) runs in ONE launch.  Still XLA-path:
@@ -38,8 +43,8 @@ pose-fit configuration (L2 + coverage) runs in ONE launch.  Still XLA-path:
 
 Used by fit.py (engine='pallas') single-mesh and sharded (the kernel honors
 the same row0/rowstride uniforms as the forward — parallel/shard_render.py),
-and by the driver benchmark (sdf3d_tpu/bench.py), whose fwd_bwd metric is
-exactly this fit step.
+and by the benchmark (sdf3d_tpu/bench.py), whose fwd_bwd metric is exactly
+this fit step.
 """
 
 from __future__ import annotations
@@ -49,10 +54,8 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sdf3d_tpu.config import RenderConfig
-from sdf3d_tpu.ops.render_bwd_kernel import _shade_tile
 from sdf3d_tpu.ops.render_kernel import (
     N_UNIFORMS,
     PallasRenderConfig,
@@ -63,6 +66,7 @@ from sdf3d_tpu.ops.render_kernel import (
     _tile_pixel_planes,
     _tile_primal,
     _tile_rays,
+    compiler_params,
     pack_uniforms,
 )
 from sdf3d_tpu.ops.scene_program import (
@@ -71,44 +75,39 @@ from sdf3d_tpu.ops.scene_program import (
     compile_scene_ray,
     scene_param_vector,
 )
-
-
-def _pool_matrix(n: int):
-    """(n/2, n) 2:1 averaging-pool operand (two 1s per row) — trace-time
-    constant; pooling becomes two small MXU matmuls instead of a lane-dim
-    reshape (a Mosaic relayout)."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (n // 2, n), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (n // 2, n), 1)
-    return jnp.where(c // 2 == r, jnp.float32(1.0), jnp.float32(0.0))
+from sdf3d_tpu.ops.shade_planes import shade_tile
 
 
 def _pool2(a):
-    """2×2 mean pool of an (R, C) plane via MXU: 0.25 · P_R @ a @ P_Cᵀ."""
-    ph = _pool_matrix(a.shape[0])
-    pw = _pool_matrix(a.shape[1])
-    hi = jax.lax.Precision.HIGHEST
-    return 0.25 * jnp.dot(jnp.dot(ph, a, precision=hi), pw.T, precision=hi)
+    """2×2 mean pool of an (R, C) plane (R, C even) as a reshape + sum —
+    no matrix product, so no TF32 rounding and no minimum dot shape."""
+    R, C = a.shape
+    return 0.25 * jnp.sum(a.reshape(R // 2, 2, C // 2, 2), axis=(1, 3))
+
+
+def partial_len(n_params: int) -> int:
+    """Length of each program's partial vector: the next power of two
+    ≥ P + N_UNIFORMS + 1 (grads, uniform grads, then the loss)."""
+    return 1 << (n_params + N_UNIFORMS).bit_length()
 
 
 def _fit_tile_kernel(
     uni, prm, *refs, soa, soa_ray, mat_soa, n_params, cfg: RenderConfig,
     pc: PallasRenderConfig, wrt_uniforms: bool, loss_kind: str, levels: int,
-    sil_w: float, sil_beta, multiview: bool = False, tile_queue: bool = False,
-    frozen_slots: tuple = (),
+    sil_w: float, sil_beta, multiview: bool = False, frozen_slots: tuple = (),
 ):
     """Kernel body: primal march/shadow/AO, then value_and_grad of the masked
-    tile loss w.r.t. scalar params and uniforms; writes the
-    (P + N_UNIFORMS + 1,) partial vector (grads then loss) scattered into an
-    (8, 128) plane.
+    tile loss w.r.t. scalar params and uniforms; writes the program's
+    partial vector (grads at their slots, then the loss at P + N_UNIFORMS).
 
     Loss terms, all inside the one launch:
 
     - pixel L2 (always), plus the multiscale pyramid when
       ``loss_kind == "multiscale"``: each level 2×2-mean-pools the masked
-      residual via MXU matmuls (``_pool2``) and adds ``4**level`` × the
-      all-real blocks' squared means — XLA ``fit.pixel_loss`` semantics,
-      including its recursive odd-edge cropping (a pooled block counts iff
-      its pooled mask is exactly 1).
+      residual (``_pool2``) and adds ``4**level`` × the all-real blocks'
+      squared means — XLA ``fit.pixel_loss`` semantics, including its
+      recursive odd-edge cropping (a pooled block counts iff its pooled
+      mask is exactly 1).
     - the silhouette coverage term when ``sil_w > 0``: the march tracks the
       ray-min SDF and its argmin distance (``_march_primary(track_min)``);
       the term re-attaches gradients by the envelope theorem exactly like
@@ -120,8 +119,6 @@ def _fit_tile_kernel(
     TH, TW = pc.tile_h, pc.tile_w
     f32 = jnp.float32
     sg = jax.lax.stop_gradient
-    if tile_queue:
-        trow, tcol, *refs = refs
     if sil_w > 0.0:
         tr, tg, tb, tc, out_ref = refs
     else:
@@ -136,8 +133,8 @@ def _fit_tile_kernel(
     def sdf(px, py, pz):
         return soa(px, py, pz, getp)
 
-    # Hoist the SMEM uniform reads once (per-view row when multiview: the
-    # grid's leading axis selects this program's camera/light/material).
+    # Load the uniforms once (per-view row when multiview: the grid's
+    # leading axis selects this program's camera/light/material).
     if multiview:
         v = pl.program_id(0)
         uni = tuple(uni[v, k] for k in range(N_UNIFORMS))
@@ -146,31 +143,19 @@ def _fit_tile_kernel(
 
     riota = jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0)
     ciota = jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1)
-    if tile_queue:
-        # 1-D grid over an arbitrary tile work-list: tile q's absolute
-        # origin comes from the SMEM tables; the mask compares *absolute*
-        # pixels against the full image — dummy (padding) tiles are placed
-        # at row0 == height so every lane masks to exact zero.
-        q = pl.program_id(0)
-        rows = trow[q] + riota.astype(f32)
-        cols = tcol[q] + ciota.astype(f32)
-        mask = jnp.where(
-            (rows < f32(cfg.height)) & (cols < f32(cfg.width)), f32(1.0), f32(0.0)
-        )
-    else:
-        off = 1 if multiview else 0
-        i = pl.program_id(off)
-        j = pl.program_id(off + 1)
-        rows, cols = _tile_pixel_planes(uni, TH, TW, axis_off=off)
-        # Padding mask in *local* (slab) coordinates: the grid covers the
-        # padded slab, and padded lanes must contribute exact zeros (their
-        # target is zero-padded; their absolute rows may even alias another
-        # slab's rows).
-        local_rows = i * TH + riota
-        local_cols = j * TW + ciota
-        mask = jnp.where(
-            (local_rows < cfg.height) & (local_cols < cfg.width), f32(1.0), f32(0.0)
-        )
+    off = 1 if multiview else 0
+    i = pl.program_id(off)
+    j = pl.program_id(off + 1)
+    rows, cols = _tile_pixel_planes(uni, TH, TW, axis_off=off)
+    # Padding mask in *local* (slab) coordinates: the grid covers the
+    # padded slab, and padded lanes must contribute exact zeros (their
+    # target is zero-padded; their absolute rows may even alias another
+    # slab's rows).
+    local_rows = i * TH + riota
+    local_cols = j * TW + ciota
+    mask = jnp.where(
+        (local_rows < cfg.height) & (local_cols < cfg.width), f32(1.0), f32(0.0)
+    )
 
     # ---- primal pipeline (identical to the forward kernel's) ----
     primal = _tile_primal(
@@ -181,31 +166,39 @@ def _fit_tile_kernel(
         min_s, t_min = primal[7], primal[8]
 
     # Frozen (non-trainable) params enter the loss as trace CONSTANTS, so
-    # their entire reverse chains are dead code Mosaic never emits — the
-    # trainable-mask constant folding of fit.py's ``trainable`` pytrees
+    # their entire reverse chains are dead code the compiler never emits —
+    # the trainable-mask constant folding of fit.py's ``trainable`` pytrees
     # (the AD section shrinks with the trainable count).
     frozen_set = frozenset(frozen_slots)
     train_idx = tuple(k for k in range(n_params) if k not in frozen_set)
     pv = tuple(prm_vals[k] for k in train_idx)
-    uv = uni  # already the hoisted scalar tuple
+    uv = uni  # already the loaded scalar tuple
 
-    def tplane(ref):
-        return ref[0] if multiview else ref[:, :]
-
-    tgt = (tplane(tr), tplane(tg), tplane(tb))
+    tgt = (tr[...], tg[...], tb[...])
 
     def tile_loss(pv_train, uv_):
         it = iter(pv_train)
         pv_ = tuple(
             prm_vals[k] if k in frozen_set else next(it) for k in range(n_params)
         )
-        # _shade_tile re-derives rays/normals/shading from the *fresh* pv_/uv_
+        # shade_tile re-derives rays/normals/shading from the *fresh* pv_/uv_
         # arguments under AD; t0/shadow/ao enter as trace constants — exactly
-        # the detached-shadow + implicit-function-t semantics of the fused
-        # backward kernel (they were computed from the same prm/uni values).
-        r, g, b = _shade_tile(
-            pv_, uv_, gpos=(rows, cols), t0=t0, shadow_in=shadow, ao_in=ao,
-            soa=soa, mat_soa=mat_soa, cfg=cfg, pc=pc,
+        # the detached-shadow + implicit-function-t semantics of the render
+        # backward (they were computed from the same prm/uni values).
+        def getp_(k):
+            return pv_[k]
+
+        def sdf_(px, py, pz):
+            return soa(px, py, pz, getp_)
+
+        material = None
+        if mat_soa is not None:
+            def material(hx, hy, hz, mch):
+                return mat_soa(hx, hy, hz, getp_, mch)[1]
+
+        r, g, b = shade_tile(
+            sdf_, uv_, gpos=(rows, cols), t0=t0, shadow_in=shadow, ao_in=ao,
+            cfg=cfg, material=material,
         )
         rm = (r - tgt[0]) * mask
         gm = (g - tgt[1]) * mask
@@ -230,16 +223,10 @@ def _fit_tile_kernel(
             # value = primal min_s; gradient = ∂f/∂(pv_, uv_) at the argmin
             # point o + t_min·d with t_min data.
             (ox_, oy_, oz_), (dx_, dy_, dz_) = _tile_rays(uv_, rows, cols, cfg, TH, TW)
-
-            def getp_ad(k):
-                return pv_[k]
-
-            f_min = soa(
-                ox_ + t_min * dx_, oy_ + t_min * dy_, oz_ + t_min * dz_, getp_ad
-            )
+            f_min = sdf_(ox_ + t_min * dx_, oy_ + t_min * dy_, oz_ + t_min * dz_)
             min_att = f_min - sg(f_min) + min_s
             cov = jax.nn.sigmoid((2.0 * cfg.march.epsilon - min_att) / beta)
-            loss = loss + sil_w * jnp.sum(mask * (cov - tplane(tc)) ** 2)
+            loss = loss + sil_w * jnp.sum(mask * (cov - tc[...]) ** 2)
         return loss
 
     if wrt_uniforms:
@@ -247,16 +234,16 @@ def _fit_tile_kernel(
     else:
         # Scene-parameter-only fit (the fit.py/bench hot path): uniforms enter
         # as trace constants, so their reverse chains (ray-gen, light,
-        # material) and plane reductions are dead code Mosaic never emits
-        # (~0.07 ms/frame at 1080p).
+        # material) and plane reductions are dead code the compiler never
+        # emits.
         loss, d_pv = jax.value_and_grad(tile_loss, argnums=0)(pv, uv)
         d_uv = ()
-    # Compile-time one-hot scatter (see render_bwd_kernel.py): component k
-    # lands at (k // 128, k % 128); the tile loss rides as component G.
-    # Frozen slots are never written — their gradient reads as exact zero.
-    r8 = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-    c8 = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
-    plane = jnp.zeros((8, 128), f32)
+    # Compile-time one-hot scatter into the partial vector: component k
+    # lands at slot k, the tile loss at P + N_UNIFORMS.  Frozen slots are
+    # never written — their gradient reads as exact zero.
+    G = partial_len(n_params)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (G,), 0)
+    vec = jnp.zeros((G,), f32)
     comps = list(d_pv) + list(d_uv) + [loss]
     slots = (
         list(train_idx)
@@ -264,14 +251,8 @@ def _fit_tile_kernel(
         + [n_params + N_UNIFORMS]
     )
     for k, d in zip(slots, comps):
-        sel = (r8 == k // 128) & (c8 == k % 128)
-        plane = plane + jnp.where(sel, d, 0.0)
-    if multiview:
-        out_ref[0, 0, 0, :, :] = plane
-    elif tile_queue:
-        out_ref[0, :, :] = plane
-    else:
-        out_ref[0, 0, :, :] = plane
+        vec = vec + jnp.where(slot == k, d, 0.0)
+    out_ref[...] = vec
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -307,10 +288,7 @@ def fit_step_kernel(
     grid = (Hp // TH, Wp // TW)
     P = int(params.shape[0])
     G = P + N_UNIFORMS
-    if G + 1 > 8 * 128:
-        raise ValueError(
-            f"scene has {P} params; fused loss kernel supports up to {8 * 128 - N_UNIFORMS - 1}"
-        )
+    GL = partial_len(P)
     if loss_kind == "multiscale" and (TH % (1 << levels) or TW % (1 << levels)):
         raise ValueError(
             f"fused multiscale needs tile dims divisible by 2^levels "
@@ -321,7 +299,7 @@ def fit_step_kernel(
 
     # Multi-view: a (V, N_UNIFORMS) uniform matrix + (V, 3, H, W) targets
     # prepend a view axis to the grid — ONE launch for all views per step
-    # (fit_scene_multiview's hot path), V·grid partial planes out.
+    # (fit_scene_multiview's hot path), V·grid partial vectors out.
     multiview = uniforms.ndim == 2
     V = int(uniforms.shape[0]) if multiview else 1
 
@@ -342,149 +320,34 @@ def fit_step_kernel(
         sil_w=float(sil_w), sil_beta=sil_beta, multiview=multiview,
         frozen_slots=tuple(frozen_slots),
     )
-    n_taps = cfg.march.max_steps + 6 + (cfg.shadow.max_steps if cfg.shadow.enabled else 0) + (
-        cfg.ao.samples if cfg.ao.enabled else 0
-    )
-    flops_per_eval = 40 * max(1, P // 4)
-    cost = pl.CostEstimate(
-        # ~3x the forward evals: primal marches + the value_and_grad of the
-        # shading expression (primal + reverse).
-        flops=3 * V * Hp * Wp * n_taps * flops_per_eval,
-        bytes_accessed=V * (Hp * Wp * 4 * len(planes_in) + grid[0] * grid[1] * 8 * 128 * 4),
-        transcendentals=V * Hp * Wp * n_taps,
-    )
     if multiview:
         full_grid = (V,) + grid
-        plane = lambda: pl.BlockSpec((1, TH, TW), lambda v, i, j: (v, i, j), memory_space=pltpu.VMEM)
-        out_spec = pl.BlockSpec((1, 1, 1, 8, 128), lambda v, i, j: (v, i, j, 0, 0), memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((V, grid[0], grid[1], 8, 128), jnp.float32)
-        semantics = ("parallel", "parallel", "parallel")
+        plane = pl.BlockSpec((None, TH, TW), lambda v, i, j: (v, i, j))
+        out_spec = pl.BlockSpec((None, None, None, GL), lambda v, i, j: (v, i, j, 0))
+        out_shape = jax.ShapeDtypeStruct((V, grid[0], grid[1], GL), jnp.float32)
     else:
         full_grid = grid
-        plane = lambda: pl.BlockSpec((TH, TW), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-        out_spec = pl.BlockSpec((1, 1, 8, 128), lambda i, j: (i, j, 0, 0), memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((grid[0], grid[1], 8, 128), jnp.float32)
-        semantics = ("parallel", "parallel")
+        plane = pl.BlockSpec((TH, TW), lambda i, j: (i, j))
+        out_spec = pl.BlockSpec((None, None, GL), lambda i, j: (i, j, 0))
+        out_shape = jax.ShapeDtypeStruct((grid[0], grid[1], GL), jnp.float32)
     partials = pl.pallas_call(
         kernel,
         grid=full_grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ] + [plane() for _ in planes_in],
+        in_specs=[pl.no_block_spec, pl.no_block_spec] + [plane] * len(planes_in),
         out_specs=out_spec,
         out_shape=out_shape,
-        cost_estimate=cost,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=semantics,
-            vmem_limit_bytes=pc.vmem_limit_bytes,
-        ),
+        backend="triton",
+        compiler_params=compiler_params(pc),
         interpret=pc.interpret,
+        name="sdf3d_fit_step",
     )(uniforms, params, *planes_in)
 
     if multiview:
         # Per-view partial sums: scene-parameter grads and loss sum over
         # views; uniform grads stay per view (each view has its own camera).
-        per_view = jnp.sum(partials, axis=(1, 2)).reshape(V, -1)
+        per_view = jnp.sum(partials, axis=(1, 2))
         return per_view[:, G].sum(), per_view[:, :P].sum(axis=0), per_view[:, P:G]
-    total = jnp.sum(partials, axis=(0, 1)).reshape(-1)
-    return total[G], total[:P], total[P:G]
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "scene_treedef", "leaf_shapes", "cfg", "pc", "wrt_uniforms",
-    "loss_kind", "levels", "sil_w", "sil_beta", "frozen_slots",
-))
-def fit_step_kernel_tiles(
-    scene_treedef, leaf_shapes, params, uniforms, target_tiles, tile_rows,
-    tile_cols, cfg: RenderConfig, pc: PallasRenderConfig,
-    wrt_uniforms: bool = False, loss_kind: str = "l2", levels: int = 3,
-    sil_w: float = 0.0, sil_beta=None, coverage_tiles=None,
-    frozen_slots: tuple = (),
-):
-    """Tile-queue fused fit step: like :func:`fit_step_kernel` but over an
-    arbitrary tile work-list instead of a rectangular slab grid — the
-    per-device program of load-balanced 2-D tile sharding
-    (parallel/tile_queue.py).
-
-    ``tile_rows``/``tile_cols``: (T,) float32 absolute tile origins (exact
-    integers; dummy padding tiles use ``row0 == cfg.height`` so their lanes
-    mask to zero).  ``target_tiles``: planar (3, T·TH, TW) stack of target
-    blocks gathered in work-list order (zero blocks for dummies);
-    ``coverage_tiles`` the matching (T·TH, TW) mask stack when ``sil_w > 0``.
-    ``cfg`` is the FULL-image config (the in-kernel mask and NDC both use
-    the full height/width).  Returns ``(loss, g_params, g_uniforms)`` —
-    partial sums over this work-list only; sharded callers psum across
-    devices.  Gradient math is identical to :func:`fit_step_kernel` (same
-    kernel body, same loss options); the multiscale pyramid is supported
-    because tile origins are (TH, TW)-aligned, so in-tile pooled blocks
-    coincide with the unsharded objective's 2**levels blocks.
-    """
-    dummies = [jnp.zeros(shape, jnp.float32) for shape in leaf_shapes]
-    scene = jax.tree_util.tree_unflatten(scene_treedef, dummies)
-    soa = compile_scene(scene)
-    soa_ray = compile_scene_ray(scene) if pc.ray_sdf else None
-    from sdf3d_tpu.sdf.materials import scene_has_materials
-
-    mat_soa = compile_scene_material(scene) if scene_has_materials(scene) else None
-    TH, TW = pc.tile_h, pc.tile_w
-    T = int(tile_rows.shape[0])
-    P = int(params.shape[0])
-    G = P + N_UNIFORMS
-    if G + 1 > 8 * 128:
-        raise ValueError(
-            f"scene has {P} params; fused loss kernel supports up to {8 * 128 - N_UNIFORMS - 1}"
-        )
-    if loss_kind == "multiscale" and (TH % (1 << levels) or TW % (1 << levels)):
-        raise ValueError(
-            f"fused multiscale needs tile dims divisible by 2^levels "
-            f"({(TH, TW)} vs levels={levels})"
-        )
-    if sil_w > 0.0 and coverage_tiles is None:
-        raise ValueError("sil_w > 0 needs coverage_tiles")
-
-    planes_in = [target_tiles[0], target_tiles[1], target_tiles[2]]
-    if sil_w > 0.0:
-        planes_in.append(jnp.asarray(coverage_tiles, jnp.float32))
-
-    kernel = functools.partial(
-        _fit_tile_kernel, soa=soa, soa_ray=soa_ray, mat_soa=mat_soa,
-        n_params=P, cfg=cfg, pc=pc, wrt_uniforms=wrt_uniforms,
-        loss_kind=loss_kind, levels=levels, sil_w=float(sil_w),
-        sil_beta=sil_beta, tile_queue=True, frozen_slots=tuple(frozen_slots),
-    )
-    n_taps = cfg.march.max_steps + 6 + (cfg.shadow.max_steps if cfg.shadow.enabled else 0) + (
-        cfg.ao.samples if cfg.ao.enabled else 0
-    )
-    flops_per_eval = 40 * max(1, P // 4)
-    cost = pl.CostEstimate(
-        flops=3 * T * TH * TW * n_taps * flops_per_eval,
-        bytes_accessed=T * TH * TW * 4 * len(planes_in) + T * 8 * 128 * 4,
-        transcendentals=T * TH * TW * n_taps,
-    )
-    partials = pl.pallas_call(
-        kernel,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ] + [
-            pl.BlockSpec((TH, TW), lambda q: (q, 0), memory_space=pltpu.VMEM)
-            for _ in planes_in
-        ],
-        out_specs=pl.BlockSpec((1, 8, 128), lambda q: (q, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, 8, 128), jnp.float32),
-        cost_estimate=cost,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            vmem_limit_bytes=pc.vmem_limit_bytes,
-        ),
-        interpret=pc.interpret,
-    )(uniforms, params, tile_rows, tile_cols, *planes_in)
-
-    total = jnp.sum(partials, axis=0).reshape(-1)
+    total = jnp.sum(partials, axis=(0, 1))
     return total[G], total[:P], total[P:G]
 
 
@@ -498,7 +361,7 @@ def fused_l2_eligible(
 ) -> bool:
     """True when the fused loss+grad path applies: default detached-shadow
     gradients, kernel-supported normals, and a scene every node of which has
-    a Mosaic emitter (same conditions as the fused backward).  Extended loss
+    a kernel emitter.  Extended loss
     terms narrow it further:
 
     - ``loss == "multiscale"``: the tile must pool evenly (tile dims
@@ -580,57 +443,6 @@ def l2_loss_and_grads(
     return loss, (g_scene, g_cam, g_light, g_mat)
 
 
-def l2_loss_and_grads_tiles(
-    cfg: RenderConfig,
-    pc: PallasRenderConfig,
-    scene,
-    camera,
-    light,
-    mat,
-    target_tiles,
-    tile_rows,
-    tile_cols,
-    wrt_uniforms: bool = False,
-    loss_kind: str = "l2",
-    levels: int = 3,
-    sil_w: float = 0.0,
-    sil_beta=None,
-    coverage_tiles=None,
-    frozen_slots: tuple = (),
-):
-    """Tile-queue counterpart of :func:`l2_loss_and_grads`: fused loss +
-    gradients over an arbitrary tile work-list (one device's share under
-    load-balanced 2-D tile sharding — parallel/tile_queue.py).
-
-    ``target_tiles`` is the planar (3, T·TH, TW) stack of target blocks in
-    work-list order (``tile_queue.gather_target_tiles``); ``tile_rows``/
-    ``tile_cols`` the (T,) absolute origin tables; ``cfg`` the FULL-image
-    config.  Returns partial ``(loss, (g_scene, g_cam, g_light, g_mat))``
-    for this work-list — callers psum across the mesh.
-    """
-    leaves, treedef = jax.tree_util.tree_flatten(scene)
-    leaf_shapes = tuple(jnp.shape(l) for l in leaves)
-    params, p_vjp = jax.vjp(scene_param_vector, scene)
-
-    def pack(cam_, light_, mat_):
-        u = pack_uniforms(cam_, light_, mat_, cfg.ray_mode)
-        return u.at[_U_K].set(jnp.asarray(cfg.shadow.k, jnp.float32))
-
-    uniforms, u_vjp = jax.vjp(pack, camera, light, mat)
-
-    loss, g_params, g_uni = fit_step_kernel_tiles(
-        treedef, leaf_shapes, params, uniforms,
-        jnp.asarray(target_tiles, jnp.float32),
-        jnp.asarray(tile_rows, jnp.float32), jnp.asarray(tile_cols, jnp.float32),
-        cfg, pc, wrt_uniforms=wrt_uniforms, loss_kind=loss_kind, levels=levels,
-        sil_w=float(sil_w), sil_beta=sil_beta, coverage_tiles=coverage_tiles,
-        frozen_slots=tuple(frozen_slots),
-    )
-    (g_scene,) = p_vjp(g_params)
-    g_cam, g_light, g_mat = u_vjp(g_uni)
-    return loss, (g_scene, g_cam, g_light, g_mat)
-
-
 def multiview_loss_and_grads(
     cfg: RenderConfig,
     pc: PallasRenderConfig,
@@ -650,9 +462,9 @@ def multiview_loss_and_grads(
     """Fused **multi-view** fit step: ONE kernel launch for all V views.
 
     The program grid grows a leading view axis; per-view uniform vectors sit
-    as a (V, N_UNIFORMS) SMEM matrix and each program reads its view's row —
+    as a (V, N_UNIFORMS) matrix and each program reads its view's row —
     V separate launches (and V compiled programs) collapse into one
-    (fit.py's ``fit_scene_multiview`` hot path, VERDICT r3 item 6).
+    (fit.py's ``fit_scene_multiview`` hot path).
 
     ``cameras``: sequence of V cameras; ``targets``: sequence of V (H, W, 3)
     images (or a stacked (V, H, W, 3) array).  Returns

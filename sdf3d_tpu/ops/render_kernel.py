@@ -1,27 +1,29 @@
 """The fused Pallas render kernel: ray-gen → march → normals → shadow → AO → shade.
 
-One kernel invocation produces a whole image tile with **zero** HBM traffic
-between stages — the TPU-native re-design of the per-fragment program at
+One program renders one block of rays with no device-memory traffic
+between stages — the fused re-design of the per-fragment program at
 ``/root/reference/Code/shader/voxel_fragment.frag:160-211`` (and the compute
-slot ``Code/kernel/thekernel_1.cl`` the reference left empty).  Design notes:
+slot ``Code/kernel/thekernel_1.cl`` the reference left empty).  It is
+written for Pallas's Triton route (``backend="triton"``).  Design notes:
 
-- **Grid** = image tiles ``(H/TH, W/TW)``; each program computes ``TH×TW``
-  rays.  Rays exist only in registers/VMEM: generated from the grid indices
-  (the pixel grid *is* the output index space — no fullscreen-quad scaffold,
-  cf. ``voxel_geometry.geom:26-52``).
+- **Grid** = image blocks ``(H/TH, W/TW)``; each program computes ``TH×TW``
+  rays (powers of two, as Triton requires).  Rays exist only in registers:
+  generated from the program ids (the pixel grid *is* the output index
+  space — no fullscreen-quad scaffold, cf. ``voxel_geometry.geom:26-52``).
+  Programs are independent and run in any order on the card's SMs.
 - **SoA planes**: every per-ray quantity is a ``(TH, TW)`` float32 plane
   (see ops/scene_program.py for why no ``(...,3)`` axis ever appears).
 - **Early exit**: the march is a ``while_loop`` over steps whose condition
   ANDs ``step < max_steps`` with ``max(active) > 0.5`` — per-ray breaks
-  become an f32 0/1 lane mask (Mosaic cannot carry ``vector<i1>`` through
-  ``scf.while``), and whole-tile convergence stops the loop, which is
-  effective because adjacent rays are coherent.
+  become an f32 0/1 mask and a whole block stops once all of its rays have
+  converged, which is effective because adjacent rays are coherent.
 - **Parameters**: scene params and camera/light/material uniforms are flat
-  float32 vectors in SMEM, read as true scalars — the analogue of the
-  reference's GLSL uniforms (``voxel_fragment.frag:5-7``) and of its CL/GL
-  shared parameter buffers (``main.cpp:55-62``).
+  float32 vectors in device memory; each program loads them once as
+  scalars — the analogue of the reference's GLSL uniforms
+  (``voxel_fragment.frag:5-7``) and of its CL/GL shared parameter buffers
+  (``main.cpp:55-62``).
 
-Outputs: rgb ``(3, H, W)`` plus aux planes t / shadow / ao ``(H, W)`` — the
+Outputs: r / g / b planes plus aux planes t / shadow / ao ``(H, W)`` — the
 aux planes are exactly the residuals the custom VJP needs, so the backward
 pass never re-marches (ops/render_pallas.py).
 """
@@ -30,12 +32,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from sdf3d_tpu.config import RenderConfig
 from sdf3d_tpu.ops.scene_program import (
@@ -46,7 +47,7 @@ from sdf3d_tpu.ops.scene_program import (
 )
 from sdf3d_tpu.sdf.node import SDFNode
 
-# Uniform vector layout (indices into the (N_UNIFORMS,) = (30,) SMEM vector).
+# Uniform vector layout (indices into the (N_UNIFORMS,) = (30,) vector).
 _U_CAM = 0        # camera position (3)
 _U_C2W = 3        # camera-to-world rotation, row-major (9)
 _U_FZ = 12        # focal z (1)
@@ -63,63 +64,59 @@ _U_ROWSTRIDE = 29  # absolute rows between successive tile rows (tile_h
 N_UNIFORMS = 30
 
 
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
 @dataclasses.dataclass(frozen=True)
 class PallasRenderConfig:
     """Static kernel parameters (hashable → jit static arg).
 
-    ``tile_h × tile_w`` rays per grid program; float32 min tile is (8, 128).
-    The default (24, 640) is the measured v5e optimum at production
-    resolutions (round 5, slope protocol: 1.703 ms fit vs 1.916 at the old
-    (16, 512)): 1080p = 45×3 tiles with ZERO padding — the old default
-    padded 1920→2048 columns (6.7% dead lanes) and ran 272 grid programs
-    vs 135 (per-program sequencing was most of the 12% gap).  720p/4K also
-    divide exactly.  The march is a serial per-ray dependency chain, so
-    wide tiles keep the VPU busy across the step-to-step latency, while
-    over-wide tiles pay more whole-tile convergence divergence than they
-    recover in ILP (benchmarks/autotune.py re-tunes for other
-    chips/scenes; small images should pass smaller tiles — the kernel pads
-    to the tile, e.g. width < 640 wastes the difference).
+    ``tile_h × tile_w`` rays per program, both powers of two (Triton block
+    shapes).  The kernel pads the image up to whole tiles and crops.
+    ``num_warps`` goes to ``triton.CompilerParams``.  The
+    defaults were chosen by a sweep on an H100 at 1080p (PERF.md): (8, 64)
+    with 4 warps gave the fastest fused fit step of the shapes tried, and
+    1080p divides into it without padding.
 
-    ``check_every``: march-loop convergence (the ``max(active)`` cross-lane
+    ``check_every``: march-loop convergence (the block-wide ``max(active)``
     reduction + scalar loop test) is only evaluated every N steps; the N
-    inner steps are unrolled straight-line vector code.  Per-ray semantics
-    are unchanged — lanes self-freeze via their mask, and a scalar
+    inner steps are unrolled straight-line code.  Per-ray semantics are
+    unchanged — lanes self-freeze via their mask, and a scalar
     ``step_idx < max_steps`` guard keeps the final partial chunk exact — so
-    any value yields reference-parity images.  Default 20 (measured optimum
-    at 1080p: 1.74 ms vs 1.79 at 10 and 1.94 at 5; 50 over-runs converged
-    tiles and loses).
+    any value yields reference-parity images.
 
     ``ray_sdf`` (default True): march SDF evals use the ray-parameterized
     scene program (scene_program.py ray emitters) — per-ray constants are
-    hoisted out of the loop, cutting march-step cost ~40% (plane = 1 FMA,
-    sphere = 2 FMA + sqrt, transforms free).  Algebraically identical to the
-    point program but rounds differently by ~1 ulp, so a measure-zero set of
-    razor-edge rays may flip one march step (measured at 1080p/reference
-    scene: 3 of 2M pixels differ by >1e-4).  ``False`` restores bit-exact
-    point-form evals for oracle-parity work.
+    hoisted out of the loop (plane = 1 FMA, sphere = 2 FMA + sqrt,
+    transforms free).  Algebraically identical to the point program but
+    rounds differently by ~1 ulp, so a measure-zero set of razor-edge rays
+    may flip one march step.  ``False`` restores point-form evals for
+    oracle-parity work.
 
     ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
-
-    ``vmem_limit_bytes``: raises Mosaic's default 16 MB scoped-vmem rail.
-    Needed by expression-heavy scenes (the Mandelbulb's unrolled ~300-op
-    distance estimator makes the fit kernel's AD section exceed the rail at
-    the default tile); ``None`` keeps the compiler default.
     """
 
-    tile_h: int = 24
-    tile_w: int = 640
-    check_every: int = 20
+    tile_h: int = 8
+    tile_w: int = 64
+    num_warps: int = 4
+    check_every: int = 4
     ray_sdf: bool = True
     interpret: bool = False
-    vmem_limit_bytes: int | None = None
-    #: Evaluate the primary-march stop predicate (2 compares + or + select,
-    #: ~4 of the ~10 vector ops/step) only every N-th unrolled step.  N > 1
-    #: is a declared NON-PARITY knob for the fast profile: lanes overstep
-    #: the surface by up to N−1 extra steps before freezing (each overstep
-    #: moves the hit point by ≤ |sdf| < ε after the first crossing, so the
-    #: image error is ε-scale; PSNR measured in benchmarks/fast_profile).
-    #: Requires check_every % stop_every == 0.  Parity paths keep 1.
+    #: Evaluate the primary-march stop predicate (2 compares + or + select)
+    #: only every N-th unrolled step.  N > 1 is a declared NON-PARITY knob
+    #: for the fast profile: lanes overstep the surface by up to N−1 extra
+    #: steps before freezing (each overstep moves the hit point by
+    #: ≤ |sdf| < ε after the first crossing, so the image error is
+    #: ε-scale; PSNR measured in benchmarks/fast_profile).  Requires
+    #: check_every % stop_every == 0.  Parity paths keep 1.
     stop_every: int = 1
+
+    def __post_init__(self):
+        if not (_is_pow2(self.tile_h) and _is_pow2(self.tile_w)):
+            raise ValueError(
+                f"tile ({self.tile_h}, {self.tile_w}) must be powers of two"
+            )
 
 
 def _walk_nodes(node):
@@ -130,27 +127,22 @@ def _walk_nodes(node):
             yield from _walk_nodes(v)
 
 
-def scene_vmem_hint(scene) -> int | None:
-    """Scoped-vmem requirement hint for a scene, or ``None`` for the
-    compiler default.  Expression-heavy primitives (the Mandelbulb's
-    unrolled ~300-op DE) push the fit kernel's AD section past the 16 MB
-    rail — measured 25 MB at the default tile; 96 MB leaves headroom for
-    bigger tiles and deeper iteration counts."""
-    from sdf3d_tpu.sdf.primitives import Mandelbulb
-
-    if any(isinstance(n, Mandelbulb) for n in _walk_nodes(scene)):
-        return 96 * 1024 * 1024
-    return None
+#: Kernel config for expression-heavy scenes (the Mandelbulb's unrolled
+#: distance estimator): smaller blocks and no unrolled march steps keep the
+#: fit kernel's AD section within the register file.  Measured on an H100
+#: at 1080p (PERF.md): 14.4 ms/step vs 19.3 ms with the default config,
+#: and a shorter Triton compile.
+HEAVY_SCENE_CONFIG = dict(tile_h=4, tile_w=32, check_every=1)
 
 
 def default_pallas_config(scene=None, **overrides) -> PallasRenderConfig:
-    """A :class:`PallasRenderConfig` with scene-aware defaults: callers that
-    don't hand-tune a config get ``vmem_limit_bytes`` raised automatically
-    for scenes that need it (instead of a Mosaic scoped-vmem OOM)."""
-    if scene is not None and overrides.get("vmem_limit_bytes") is None:
-        hint = scene_vmem_hint(scene)
-        if hint is not None:
-            overrides["vmem_limit_bytes"] = hint
+    """A :class:`PallasRenderConfig` with scene-aware defaults: fractal
+    scenes get :data:`HEAVY_SCENE_CONFIG`.  Explicit ``overrides`` always
+    win."""
+    from sdf3d_tpu.sdf.primitives import Mandelbulb
+
+    if scene is not None and any(isinstance(n, Mandelbulb) for n in _walk_nodes(scene)):
+        overrides = {**HEAVY_SCENE_CONFIG, **overrides}
     return PallasRenderConfig(**overrides)
 
 
@@ -228,10 +220,9 @@ def _tile_rays(uni, rows, cols, cfg, TH, TW):
 def _march_primary(ev_primary, mc, chk, TH, TW, track_min: bool = False, stop_every: int = 1):
     """Primary sphere-trace march (voxel_fragment.frag:86-103 semantics).
 
-    Lane masks are carried as f32 0/1 planes: Mosaic cannot legalize
-    vector<i1> carries through scf.while (loop yields fail to lower), and
-    the loop condition reduces the mask with max() so only a *scalar*
-    boolean ever crosses an iteration boundary.
+    Lane masks are carried as f32 0/1 planes (``dist += active * s`` is one
+    FMA), and the loop condition reduces the mask with max() so only a
+    *scalar* boolean decides whether the block keeps stepping.
 
     ``track_min=True`` additionally carries the ray's minimum SDF value and
     the marched distance where it occurred (``march.ray_min_sdf`` semantics
@@ -279,7 +270,7 @@ def _march_primary(ev_primary, mc, chk, TH, TW, track_min: bool = False, stop_ev
 
     def relaxed_body(state):
         # Keinert over-relaxed sphere tracing (march.py::_sphere_trace_relaxed
-        # semantics, f32 lane masks/ω per the Mosaic i1-carry restriction).
+        # semantics, f32 lane masks/ω).
         step, t, prev_r, step_len, om, active = state
         for i in range(chk):
             s = ev_primary(t)
@@ -546,9 +537,8 @@ def _tile_primal(uni, getp, sdf, soa_ray, rows, cols, cfg, pc, track_min: bool =
 
 def _forward_tile_tail(uni, getp, sdf, soa_ray, mat_soa, rows, cols, cfg, pc):
     """The forward pipeline for one tile given its absolute pixel planes:
-    rays → march → normals → shadow → AO → shade.  Shared by the grid
-    kernel (affine row mapping) and the tile-queue kernel (per-tile origin
-    tables).  Returns ``(r, g, b, t, shadow, ao)`` planes."""
+    rays → march → normals → shadow → AO → shade.  Returns
+    ``(r, g, b, t, shadow, ao)`` planes."""
     f32 = jnp.float32
     mc = cfg.march
     (ox, oy, oz), (dx, dy, dz), t, (nx, ny, nz), (ix, iy, iz), shadow, ao = _tile_primal(
@@ -611,15 +601,15 @@ def _hoist_params(prm, n_params):
     return getp
 
 
-def _render_tile_kernel(uni, prm, rgb_ref, t_ref, sh_ref, ao_ref, *, soa, soa_ray, mat_soa, n_params, cfg: RenderConfig, pc: PallasRenderConfig):
+def _render_tile_kernel(uni, prm, r_ref, g_ref, b_ref, t_ref, sh_ref, ao_ref, *, soa, soa_ray, mat_soa, n_params, cfg: RenderConfig, pc: PallasRenderConfig):
     """Kernel body. ``soa(px,py,pz,getp)`` is the compiled scene program."""
     TH, TW = pc.tile_h, pc.tile_w
 
-    # Hoist every SMEM parameter read to the kernel preamble: the scene
-    # program evaluates ``getp`` inside the march loops (100s of times), and
-    # loop-invariant SMEM loads are cheaper guaranteed-hoisted here than
-    # left to the compiler.
+    # Load every parameter and uniform once, in the kernel preamble: the
+    # scene program evaluates ``getp`` inside the march loops (100s of
+    # times), and loop-invariant scalars then live in registers.
     getp = _hoist_params(prm, n_params)
+    uni = tuple(uni[k] for k in range(N_UNIFORMS))
 
     def sdf(px, py, pz):
         return soa(px, py, pz, getp)
@@ -628,43 +618,22 @@ def _render_tile_kernel(uni, prm, rgb_ref, t_ref, sh_ref, ao_ref, *, soa, soa_ra
     r, g, b, t, shadow, ao = _forward_tile_tail(
         uni, getp, sdf, soa_ray, mat_soa, rows, cols, cfg, pc
     )
-    rgb_ref[0, :, :] = r
-    rgb_ref[1, :, :] = g
-    rgb_ref[2, :, :] = b
-    t_ref[:, :] = t
-    sh_ref[:, :] = shadow
-    ao_ref[:, :] = ao
-
-
-def _render_tile_queue_kernel(uni, prm, trow, tcol, rgb_ref, t_ref, sh_ref, ao_ref, *, soa, soa_ray, mat_soa, n_params, cfg: RenderConfig, pc: PallasRenderConfig):
-    """Tile-queue kernel body: 1-D grid over an arbitrary tile work-list;
-    tile ``q``'s absolute image origin comes from the SMEM tables
-    ``(trow[q], tcol[q])`` instead of an affine row mapping — the mechanism
-    behind load-balanced 2-D tile sharding (parallel/tile_queue.py)."""
-    TH, TW = pc.tile_h, pc.tile_w
-    f32 = jnp.float32
-    getp = _hoist_params(prm, n_params)
-
-    def sdf(px, py, pz):
-        return soa(px, py, pz, getp)
-
-    q = pl.program_id(0)
-    uni = tuple(uni[k] for k in range(N_UNIFORMS))
-    rows = trow[q] + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0).astype(f32)
-    cols = tcol[q] + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1).astype(f32)
-    r, g, b, t, shadow, ao = _forward_tile_tail(
-        uni, getp, sdf, soa_ray, mat_soa, rows, cols, cfg, pc
-    )
-    rgb_ref[0, :, :] = r
-    rgb_ref[1, :, :] = g
-    rgb_ref[2, :, :] = b
-    t_ref[:, :] = t
-    sh_ref[:, :] = shadow
-    ao_ref[:, :] = ao
+    r_ref[...] = r
+    g_ref[...] = g
+    b_ref[...] = b
+    t_ref[...] = t
+    sh_ref[...] = shadow
+    ao_ref[...] = ao
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def compiler_params(pc: PallasRenderConfig):
+    """The Triton compiler parameters every kernel of this package uses (one
+    pipeline stage: the kernels issue no loads inside their loops)."""
+    return pltriton.CompilerParams(num_warps=pc.num_warps, num_stages=1)
 
 
 @functools.partial(jax.jit, static_argnames=("scene_treedef", "leaf_shapes", "cfg", "pc"))
@@ -673,8 +642,8 @@ def _render_kernel_call(scene_treedef, leaf_shapes, params, uniforms, cfg: Rende
 
     The scene is rebuilt from (treedef, leaf_shapes) with dummy leaves — the
     emitted program depends only on node types and leaf shapes; values are
-    read from the SMEM ``params`` vector at run time, so parameter updates
-    never recompile.
+    read from the ``params`` vector at run time, so parameter updates never
+    recompile.  Returns planar rgb ``(3, H, W)`` and t / shadow / ao.
     """
     dummies = [jnp.zeros(shape, jnp.float32) for shape in leaf_shapes]
     scene = jax.tree_util.tree_unflatten(scene_treedef, dummies)
@@ -700,127 +669,31 @@ def _render_kernel_call(scene_treedef, leaf_shapes, params, uniforms, cfg: Rende
         _render_tile_kernel, soa=soa, soa_ray=soa_ray, mat_soa=mat_soa,
         n_params=int(params.shape[0]), cfg=cfg, pc=pc,
     )
-    # Worst-case per-ray SDF evals: march + 4-6 normal taps + shadow + AO.
-    n_taps = cfg.march.max_steps + 6 + (cfg.shadow.max_steps if cfg.shadow.enabled else 0) + (
-        cfg.ao.samples if cfg.ao.enabled else 0
-    )
-    flops_per_eval = 40 * max(1, params.shape[0] // 4)
-    cost = pl.CostEstimate(
-        flops=Hp * Wp * n_taps * flops_per_eval,
-        bytes_accessed=Hp * Wp * 4 * 6,
-        transcendentals=Hp * Wp * n_taps,
-    )
-
-    rgb, t, sh, ao = pl.pallas_call(
+    plane = pl.BlockSpec((TH, TW), lambda i, j: (i, j))
+    r, g, b, t, sh, ao = pl.pallas_call(
         kernel,
         grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((3, TH, TW), lambda i, j: (0, i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-        ],
-        cost_estimate=cost,
-        # Tiles are independent: "parallel" lets Mosaic split the grid
-        # across both TensorCores on megacore parts (v4/v5p); no-op on
-        # single-core chips (v5e).
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=pc.vmem_limit_bytes,
-        ),
+        in_specs=[pl.no_block_spec, pl.no_block_spec],
+        out_specs=[plane] * 6,
+        out_shape=[jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)] * 6,
+        backend="triton",
+        compiler_params=compiler_params(pc),
         interpret=pc.interpret,
+        name="sdf3d_render",
     )(uniforms, params)
 
-    # Planar (3, H, W) — the kernel's native layout; AoS consumers transpose
-    # in render_kernel_forward (keeping the VJP boundary planar, see
+    # Planar (3, H, W) — AoS consumers transpose in render_kernel_forward
+    # (keeping the VJP boundary planar, see
     # ops/render_pallas.py::render_pallas_planar).
-    return rgb[:, :H, :W], t[:H, :W], sh[:H, :W], ao[:H, :W]
-
-
-@functools.partial(jax.jit, static_argnames=("scene_treedef", "leaf_shapes", "cfg", "pc"))
-def _render_kernel_tiles_call(scene_treedef, leaf_shapes, params, uniforms, tile_rows, tile_cols, cfg: RenderConfig, pc: PallasRenderConfig):
-    """Tile-queue forward: render the ``T`` tiles whose absolute (row0, col0)
-    origins are given by the runtime SMEM tables ``tile_rows``/``tile_cols``
-    (each ``(T,)`` float32 holding exact integer pixel offsets).
-
-    Returns the planar tile stack ``(3, T·TH, TW)`` plus t/shadow/ao stacks
-    ``(T·TH, TW)`` — tile ``q`` occupies rows ``[q·TH, (q+1)·TH)``.  The
-    caller owns placement and reassembly (parallel/tile_queue.py); origin
-    tables are runtime inputs, so re-planning the work-list (e.g. the
-    work-balanced policy after a scene change) never recompiles.  NDC comes
-    from ``cfg.ndc_height/ndc_width`` (or height/width), so tiles map to
-    exactly the same rays as the affine-grid kernel — bitwise-identical
-    pixels (same f32 arithmetic on the same absolute row/col planes).
-    """
-    dummies = [jnp.zeros(shape, jnp.float32) for shape in leaf_shapes]
-    scene = jax.tree_util.tree_unflatten(scene_treedef, dummies)
-    soa = compile_scene(scene)
-    soa_ray = compile_scene_ray(scene) if pc.ray_sdf else None
-    from sdf3d_tpu.sdf.materials import scene_has_materials
-
-    mat_soa = compile_scene_material(scene) if scene_has_materials(scene) else None
-    TH, TW = pc.tile_h, pc.tile_w
-    T = int(tile_rows.shape[0])
-
-    kernel = functools.partial(
-        _render_tile_queue_kernel, soa=soa, soa_ray=soa_ray, mat_soa=mat_soa,
-        n_params=int(params.shape[0]), cfg=cfg, pc=pc,
-    )
-    n_taps = cfg.march.max_steps + 6 + (cfg.shadow.max_steps if cfg.shadow.enabled else 0) + (
-        cfg.ao.samples if cfg.ao.enabled else 0
-    )
-    flops_per_eval = 40 * max(1, params.shape[0] // 4)
-    cost = pl.CostEstimate(
-        flops=T * TH * TW * n_taps * flops_per_eval,
-        bytes_accessed=T * TH * TW * 4 * 6,
-        transcendentals=T * TH * TW * n_taps,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((3, TH, TW), lambda q: (0, q, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda q: (q, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda q: (q, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda q: (q, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((3, T * TH, TW), jnp.float32),
-            jax.ShapeDtypeStruct((T * TH, TW), jnp.float32),
-            jax.ShapeDtypeStruct((T * TH, TW), jnp.float32),
-            jax.ShapeDtypeStruct((T * TH, TW), jnp.float32),
-        ],
-        cost_estimate=cost,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            vmem_limit_bytes=pc.vmem_limit_bytes,
-        ),
-        interpret=pc.interpret,
-    )(uniforms, params, tile_rows, tile_cols)
+    rgb = jnp.stack([r[:H, :W], g[:H, :W], b[:H, :W]])
+    return rgb, t[:H, :W], sh[:H, :W], ao[:H, :W]
 
 
 @functools.partial(jax.jit, static_argnames=("scene_treedef", "leaf_shapes", "cfg", "pc"))
 def _render_kernel_entry(scene_treedef, leaf_shapes, leaves, camera, light, mat, cfg, pc):
     """Single-jit entry: parameter/uniform packing traces into the same
-    program as the pallas_call.  Packing eagerly costs ~10 tiny device ops
-    per frame — on relay/tunnelled backends each eager dispatch is ~1-3 ms,
-    an order of magnitude more than the 1080p kernel itself."""
+    program as the pallas_call instead of ~10 tiny eager dispatches per
+    frame."""
     scene = jax.tree_util.tree_unflatten(scene_treedef, leaves)
     params = scene_param_vector(scene)
     uniforms = pack_uniforms(camera, light, mat, cfg.ray_mode)
@@ -838,8 +711,7 @@ def render_kernel_forward(
     planar: bool = False,
 ):
     """Fused forward render. Returns ``(rgb, t, shadow, ao)`` with rgb
-    ``(H, W, 3)``, or the kernel-native planar ``(3, H, W)`` when
-    ``planar=True`` (skips a 50 MB relayout at 1080p).
+    ``(H, W, 3)``, or the planar ``(3, H, W)`` when ``planar=True``.
 
     The kernel is recompiled per (scene structure, cfg, pc); scene/camera/
     light/material *values* are runtime inputs — no recompilation when

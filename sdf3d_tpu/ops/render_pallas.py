@@ -1,9 +1,10 @@
 """User-facing Pallas render entry points with a no-march backward pass.
 
-Forward: the fused kernel (ops/render_kernel.py) — all marches on-chip.
-Backward: **no march at all.**  The forward kernel already produced the three
-quantities the gradient needs — hit distance ``t``, shadow and AO planes —
-so the VJP re-traces only the *shading* expression in plain XLA with:
+Forward: the fused kernel (ops/render_kernel.py) — all marches in one
+launch.  Backward: **no march at all.**  The forward kernel already
+produced the three quantities the gradient needs — hit distance ``t``,
+shadow and AO planes — so the VJP re-traces only the *shading* expression
+in plain XLA with:
 
 - ``t`` re-attached through the implicit-function theorem (``diff.py``
   semantics: dt = −(∇f·do + t·∇f·dd + f_θ·dθ)/(∇f·d)), giving scene and
@@ -13,6 +14,11 @@ so the VJP re-traces only the *shading* expression in plain XLA with:
   else flows);
 - normals, lighting and material gradients via ordinary AD of the shading
   formulas.
+
+The shading expression is ``shade_planes.shade_tile`` — the same one
+the fused fit kernel differentiates in-kernel — so every configuration
+(``ShadowConfig.grad == "ad"``, scenes without a kernel emitter) shares
+one backward, :func:`shade_planes.shade_backward`.
 
 Cost: forward ≈ the marches (O(steps) SDF evals per ray, zero HBM traffic
 between stages); backward ≈ one shading pass (O(1) SDF evals per ray).
@@ -27,7 +33,6 @@ import jax.numpy as jnp
 
 from sdf3d_tpu.camera import Camera
 from sdf3d_tpu.config import RenderConfig
-from sdf3d_tpu.diff import _DENOM_FLOOR
 from sdf3d_tpu.lighting import Material, PointLight
 from sdf3d_tpu.ops.render_kernel import (
     PallasRenderConfig,
@@ -49,14 +54,11 @@ def render_pallas_planar(
     """Fused Pallas render, differentiable; returns planar RGB (3, H, W).
 
     This planar form is the custom-VJP boundary: the incoming cotangent
-    arrives channel-planar, so the fused backward kernel reads contiguous
-    (H, W) planes.  With an (H, W, 3) boundary the backward had to extract
-    three lane-stride-3 channels from the AoS cotangent — Mosaic/XLA
-    relayouts costing more than the whole backward kernel (~1.7 ms vs
-    0.7 ms at 1080p).  :func:`render_pallas` wraps this in a transpose for
-    the user-facing (H, W, 3) layout.
+    arrives channel-planar, so the backward reads contiguous (H, W) planes.
+    :func:`render_pallas` wraps this in a transpose for the user-facing
+    (H, W, 3) layout.
 
-    Scene families without a Mosaic emitter (VoxelGrid, NeuralSDF — their
+    Scene families without a kernel emitter (VoxelGrid, NeuralSDF — their
     per-lane gathers/matmuls don't lower to the kernel; docs/performance.md
     §Grid scenes) transparently run the banded-XLA pipeline instead, with
     the same residual planes and the same differentiable API.
@@ -93,193 +95,8 @@ def _fwd(cfg, pc, scene, camera, light, mat):
     return rgb, (scene, camera, light, mat, t, shadow, ao)
 
 
-def _planar_shade(cfg, scene, camera, light, mat, t, shadow, ao):
-    """The kernel's shading expression re-traced in planar SoA form.
-
-    The backward pass differentiates *this* (via ``jax.vjp``) instead of the
-    AoS ``(H, W, 3)`` shade path: every intermediate is an ``(H, W)`` plane,
-    matching the layout XLA vectorizes well on TPU (the AoS path's trailing
-    size-3 axis cost the backward ~5 ms/frame at 1080p vs ~1 ms planar).
-    Mirrors ops/render_kernel.py::_render_tile_kernel stage for stage, and
-    reuses the same scene-program emitter for SDF evals.
-
-    ``t`` (hit distance) is re-attached through the implicit-function
-    theorem without a custom_vjp: with ``t₀ = stop_grad(t)``,
-    ``t* = t₀ − (f(o + t₀·d, θ) − stop_grad(f)) / stop_grad(∇f·d)`` has
-    primal value exactly ``t₀`` and the implicit-function gradients
-    ∂t/∂θ = −f_θ/(∇f·d), ∂t/∂o = −∇f/(∇f·d), ∂t/∂d = −t₀·∇f/(∇f·d)
-    (diff.py semantics; masked where unusable).  ``shadow`` and ``ao`` are
-    detached factors (ShadowConfig.grad == "detach" semantics).
-    """
-    from sdf3d_tpu.camera import focal_z, pixel_grid
-    from sdf3d_tpu.ops.scene_program import compile_scene, scene_param_vector
-
-    f32 = jnp.float32
-    H = cfg.ndc_height or cfg.height
-    W = cfg.ndc_width or cfg.width
-    mc = cfg.march
-
-    try:
-        soa = compile_scene(scene)
-        # The emitter walk only runs on evaluation — probe it (cheap,
-        # abstract) so unsupported nodes fall back instead of raising
-        # mid-vjp.
-        jax.eval_shape(
-            lambda: soa(jnp.zeros((1, 1)), jnp.zeros((1, 1)), jnp.zeros((1, 1)), lambda k: jnp.float32(0))
-        )
-        params = scene_param_vector(scene)
-
-        def sdf(px, py, pz):
-            return soa(px, py, pz, lambda k: params[k])
-    except TypeError:
-        # Scene contains nodes without a Pallas emitter (e.g. NeuralSDF,
-        # VoxelGrid).  The planar backward only needs *some* differentiable
-        # evaluation; scene.distance on a stacked point works for every
-        # node and XLA still fuses it well (one stack per eval).
-        def sdf(px, py, pz):
-            return scene.distance(jnp.stack([px, py, pz], axis=-1))
-
-    # ---- ray generation (kernel parity: normalize, rotate, re-normalize) ----
-    qx, qy = pixel_grid(cfg.width, cfg.height)
-    ar = f32(W / H)
-    vx = qx * ar
-    vy = qy
-    vz = jnp.broadcast_to(focal_z(camera.fov_deg, cfg.ray_mode), qx.shape)
-    inv = jax.lax.rsqrt(vx * vx + vy * vy + vz * vz)
-    vx, vy, vz = vx * inv, vy * inv, vz * inv
-    m = camera.c2w
-    dx = m[0, 0] * vx + m[0, 1] * vy + m[0, 2] * vz
-    dy = m[1, 0] * vx + m[1, 1] * vy + m[1, 2] * vz
-    dz = m[2, 0] * vx + m[2, 1] * vy + m[2, 2] * vz
-    inv2 = jax.lax.rsqrt(dx * dx + dy * dy + dz * dz)
-    dx, dy, dz = dx * inv2, dy * inv2, dz * inv2
-    ox, oy, oz = camera.position[0], camera.position[1], camera.position[2]
-
-    # ---- implicit-function re-attachment of the stored hit distance ----
-    sg = jax.lax.stop_gradient
-    t0 = sg(t)
-    px0, py0, pz0 = sg(ox + t0 * dx), sg(oy + t0 * dy), sg(oz + t0 * dz)
-    ddx, ddy, ddz = sg(dx), sg(dy), sg(dz)
-    _, denom = jax.jvp(sdf, (px0, py0, pz0), (ddx, ddy, ddz))
-    denom = sg(denom)
-    usable = (t0 <= mc.max_distance) & (jnp.abs(denom) >= _DENOM_FLOOR)
-    inv_denom = jnp.where(usable, 1.0 / jnp.where(usable, denom, 1.0), 0.0)
-    f_here = sdf(ox + t0 * dx, oy + t0 * dy, oz + t0 * dz)
-    t_att = t0 - (f_here - sg(f_here)) * inv_denom
-
-    hx, hy, hz = ox + t_att * dx, oy + t_att * dy, oz + t_att * dz
-
-    # ---- normals (kernel parity) ----
-    e = f32(mc.epsilon)
-    if cfg.normals == "central":
-        nx = sdf(hx + e, hy, hz) - sdf(hx - e, hy, hz)
-        ny = sdf(hx, hy + e, hz) - sdf(hx, hy - e, hz)
-        nz = sdf(hx, hy, hz + e) - sdf(hx, hy, hz - e)
-    elif cfg.normals == "tetrahedron":
-        s0 = sdf(hx + e, hy - e, hz - e)
-        s1 = sdf(hx - e, hy - e, hz + e)
-        s2 = sdf(hx - e, hy + e, hz - e)
-        s3 = sdf(hx + e, hy + e, hz + e)
-        nx = s0 - s1 - s2 + s3
-        ny = -s0 - s1 + s2 + s3
-        nz = -s0 + s1 - s2 + s3
-    else:
-        raise ValueError(f"planar backward supports central/tetrahedron normals, not {cfg.normals!r}")
-    ninv = jax.lax.rsqrt(jnp.maximum(nx * nx + ny * ny + nz * nz, 1e-24))
-    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
-
-    # ---- incident light / secondary factors ----
-    lx, ly, lz = light.position[0], light.position[1], light.position[2]
-    ix, iy, iz = lx - hx, ly - hy, lz - hz
-    iinv = jax.lax.rsqrt(jnp.maximum(ix * ix + iy * iy + iz * iz, 1e-24))
-    ix, iy, iz = ix * iinv, iy * iinv, iz * iinv
-
-    if cfg.shadow.enabled and cfg.shadow.grad == "ad":
-        # Penumbra-shape gradients (ShadowConfig.grad == "ad", matching the
-        # XLA path): re-march the shadow ray differentiably with a fixed trip
-        # count, then swap in the kernel's plane as the primal — forward
-        # values stay bit-exact with the fused kernel while gradients come
-        # from AD through the re-march.  O(shadow.max_steps) residuals under
-        # AD: an explicit opt-in for lighting-from-shadow inverse problems.
-        import dataclasses as _dc
-
-        from sdf3d_tpu.march import soft_shadow
-
-        sh_o = jnp.stack(
-            [hx + 2.0 * e * nx, hy + 2.0 * e * ny, hz + 2.0 * e * nz], axis=-1
-        )
-        inc = jnp.stack([ix, iy, iz], axis=-1)
-        mc_ad = _dc.replace(mc, early_exit=False)
-        shadow_ad = soft_shadow(
-            lambda p: sdf(p[..., 0], p[..., 1], p[..., 2]), sh_o, inc, cfg.shadow, mc_ad
-        )
-        shadow = shadow_ad - sg(shadow_ad) + sg(shadow)
-    else:
-        shadow = sg(shadow)
-
-    if cfg.ao.enabled:
-        # AO gradients always flow (shade_pixels never detaches AO on the
-        # XLA path): the fixed small tap loop is cheap to re-trace
-        # differentiably; the kernel's plane stays the primal.
-        occ = jnp.zeros_like(t0)
-        weight = 1.0
-        for tap in range(1, cfg.ao.samples + 1):
-            hh = cfg.ao.step * tap
-            sa = sdf(hx + hh * nx, hy + hh * ny, hz + hh * nz)
-            occ = occ + weight * (hh - sa)
-            weight *= cfg.ao.falloff
-        ao_ad = jnp.clip(1.0 - cfg.ao.strength * occ, 0.0, 1.0)
-        ao = ao_ad - sg(ao_ad) + sg(ao)
-    else:
-        ao = sg(ao)
-
-    # ---- shading (kernel parity) ----
-    wx, wy, wz = ox - hx, oy - hy, oz - hz
-    winv = jax.lax.rsqrt(jnp.maximum(wx * wx + wy * wy + wz * wz, 1e-24))
-    wx, wy, wz = wx * winv, wy * winv, wz * winv
-    hwx, hwy, hwz = ix + wx, iy + wy, iz + wz
-    hwinv = jax.lax.rsqrt(jnp.maximum(hwx * hwx + hwy * hwy + hwz * hwz, 1e-24))
-    hwx, hwy, hwz = hwx * hwinv, hwy * hwinv, hwz * hwinv
-
-    ndoth = jnp.maximum(nx * hwx + ny * hwy + nz * hwz, 0.0)
-    dif = jnp.clip(nx * ix + ny * iy + nz * iz, 0.0, 1.0) * shadow
-    amb_scale = light.ambient * ao if cfg.ao.enabled else light.ambient * jnp.ones_like(dif)
-
-    # Per-object materials (Shaded tags): resolve per-pixel channels at the
-    # hit point so material gradients flow; otherwise the global scalars.
-    from sdf3d_tpu.sdf.materials import material_at, scene_has_materials
-
-    if scene_has_materials(scene):
-        _m = material_at(scene, jnp.stack([hx, hy, hz], axis=-1), mat)
-        m_amb = [_m.ambient[..., c] for c in range(3)]
-        m_dif = [_m.diffuse[..., c] for c in range(3)]
-        m_spec = [_m.specular[..., c] for c in range(3)]
-        shn = _m.shininess
-    else:
-        m_amb = [mat.ambient[c] for c in range(3)]
-        m_dif = [mat.diffuse[c] for c in range(3)]
-        m_spec = [mat.specular[c] for c in range(3)]
-        shn = mat.shininess
-    spec = jnp.power(ndoth, shn)
-
-    if cfg.shading == "blinn_phong":
-        chans = [amb_scale * m_amb[c] + dif * m_dif[c] + spec * m_spec[c] for c in range(3)]
-    elif cfg.shading == "lambert":
-        chans = [amb_scale * m_amb[c] + dif * m_dif[c] for c in range(3)]
-    else:
-        raise ValueError(f"unknown shading mode {cfg.shading!r}")
-
-    if cfg.background is not None:
-        miss = sg(t) > mc.max_distance
-        chans = [jnp.where(miss, f32(bgc), ch) for bgc, ch in zip(cfg.background, chans)]
-
-    # Planar (3, H, W): matches render_pallas_planar's output layout so the
-    # vjp cotangent slices into contiguous channel planes.
-    return jnp.stack(chans, axis=0)
-
-
 def _scene_compiles(scene) -> bool:
-    """True when every node has a Pallas emitter (fused-backward eligible)."""
+    """True when every node has a kernel emitter (fused-kernel eligible)."""
     from sdf3d_tpu.ops.scene_program import compile_scene
 
     try:
@@ -293,42 +110,32 @@ def _scene_compiles(scene) -> bool:
 
 
 def _bwd(cfg, pc, residuals, g_rgb):
+    from sdf3d_tpu.ops.render_kernel import _U_K, pack_uniforms
+    from sdf3d_tpu.ops.scene_program import scene_param_vector
+    from sdf3d_tpu.ops.shade_planes import shade_backward
+
     scene, camera, light, mat, t, shadow, ao = residuals
+    leaves, treedef = jax.tree_util.tree_flatten(scene)
+    leaf_shapes = tuple(jnp.shape(l) for l in leaves)
 
-    # Fused Pallas backward (default path): shading vjp fully on-chip.  The
-    # XLA planar fallback covers shadow grad == "ad" (needs a differentiable
-    # re-march) and scenes without a kernel emitter (NeuralSDF/VoxelGrid).
-    use_fused = (
-        not (cfg.shadow.enabled and cfg.shadow.grad == "ad")
-        and cfg.normals in ("central", "tetrahedron")
-        and _scene_compiles(scene)
-    )
-    if use_fused:
-        from sdf3d_tpu.ops.render_bwd_kernel import render_kernel_backward
-        from sdf3d_tpu.ops.render_kernel import _U_K, pack_uniforms
-        from sdf3d_tpu.ops.scene_program import scene_param_vector
+    def pack(cam_, light_, mat_):
+        u = pack_uniforms(cam_, light_, mat_, cfg.ray_mode)
+        return u.at[_U_K].set(jnp.asarray(cfg.shadow.k, jnp.float32))
 
-        leaves, treedef = jax.tree_util.tree_flatten(scene)
-        leaf_shapes = tuple(jnp.shape(l) for l in leaves)
+    uniforms, u_vjp = jax.vjp(pack, camera, light, mat)
+    if _scene_compiles(scene):
+        # Differentiate at the kernels' parameter-vector boundary, then
+        # scatter back to the scene pytree.
         params, p_vjp = jax.vjp(scene_param_vector, scene)
-
-        def pack(cam_, light_, mat_):
-            u = pack_uniforms(cam_, light_, mat_, cfg.ray_mode)
-            return u.at[_U_K].set(jnp.asarray(cfg.shadow.k, jnp.float32))
-
-        uniforms, u_vjp = jax.vjp(pack, camera, light, mat)
-        g_params, g_uni = render_kernel_backward(
+        g_params, g_uni = shade_backward(
             treedef, leaf_shapes, params, uniforms, g_rgb, t, shadow, ao, cfg, pc
         )
         (g_scene,) = p_vjp(g_params)
-        g_cam, g_light, g_mat = u_vjp(g_uni)
-        return g_scene, g_cam, g_light, g_mat
-
-    def shade_path(scene_, camera_, light_, mat_):
-        return _planar_shade(cfg, scene_, camera_, light_, mat_, t, shadow, ao)
-
-    _, pullback = jax.vjp(shade_path, scene, camera, light, mat)
-    return pullback(g_rgb)
+    else:
+        g_scene, g_uni = shade_backward(
+            treedef, leaf_shapes, scene, uniforms, g_rgb, t, shadow, ao, cfg, pc
+        )
+    return (g_scene, *u_vjp(g_uni))
 
 
 render_pallas_planar.defvjp(_fwd, _bwd)
@@ -342,9 +149,10 @@ def render_planar_pu(scene_treedef, leaf_shapes, cfg, pc, params, uniforms):
     must patch uniforms with *traced* values before the custom-VJP boundary —
     the sharded fit sets ``row0``/``rowstride`` from ``lax.axis_index`` inside
     ``shard_map`` (parallel/shard_render.py), which no pytree-level entry can
-    express (cfg/camera are static/structured there).  Backward = the fused
-    backward kernel; both kernels honor the same row0/rowstride tile→pixel
-    mapping, so per-slab gradients land at the right absolute pixels.
+    express (cfg/camera are static/structured there).  Backward =
+    :func:`shade_planes.shade_backward`, which honors the forward kernel's
+    row0/rowstride tile→pixel mapping, so per-slab gradients land at the
+    right absolute pixels.
     """
     rgb, _, _, _ = _render_kernel_call(scene_treedef, leaf_shapes, params, uniforms, cfg, pc)
     return rgb
@@ -356,10 +164,10 @@ def _pu_fwd(scene_treedef, leaf_shapes, cfg, pc, params, uniforms):
 
 
 def _pu_bwd(scene_treedef, leaf_shapes, cfg, pc, residuals, g_rgb):
-    from sdf3d_tpu.ops.render_bwd_kernel import render_kernel_backward
+    from sdf3d_tpu.ops.shade_planes import shade_backward
 
     params, uniforms, t, shadow, ao = residuals
-    g_params, g_uni = render_kernel_backward(
+    g_params, g_uni = shade_backward(
         scene_treedef, leaf_shapes, params, uniforms, g_rgb, t, shadow, ao, cfg, pc
     )
     return g_params, g_uni
@@ -383,8 +191,8 @@ def render_pallas_rows(
     tile rows strided by ``rowstride`` (both may be traced — e.g. derived
     from ``lax.axis_index`` under ``shard_map``).  Returns ``(h, W, 3)``.
 
-    Gradients flow to scene/camera/light/mat through the fused backward
-    kernel (scene via ``scene_param_vector``'s vjp, the rest via
+    Gradients flow to scene/camera/light/mat through the planar shading
+    backward (scene via ``scene_param_vector``'s vjp, the rest via
     ``pack_uniforms``'s vjp); ``row0``/``rowstride`` are positional, not
     differentiable.
     """

@@ -1,22 +1,23 @@
-"""Scene compiler: SDF pytree → structure-of-arrays TPU kernel program.
+"""Scene compiler: SDF pytree → structure-of-arrays kernel program.
 
 The reference compiles its scene by handing GLSL text to the driver
 (``sceneSDF`` at ``/root/reference/Code/shader/voxel_fragment.frag:73-81``,
-built at ``main.cpp:74-77``).  The TPU-native equivalent is staged tracing:
+built at ``main.cpp:74-77``).  The equivalent here is staged tracing:
 :func:`compile_scene` walks the scene pytree **once at trace time** and emits
 a closed function
 
     ``dist = emit(px, py, pz, getp)``
 
 over *component planes* ``px, py, pz`` (each an ``(TH, TW)`` tile) and a
-scalar-parameter accessor ``getp(i)`` (an SMEM read inside a Pallas kernel, a
-vector index outside).  Two properties make this the right shape for the VPU:
+scalar-parameter accessor ``getp(i)`` (a scalar loaded once per kernel
+program, a vector index outside).  Two properties make this the right shape
+for a fused kernel:
 
 - **SoA layout**: no ``(..., 3)`` trailing axis anywhere — a 3-vector as a
-  last dim would be padded to the 128-wide lane dimension by Mosaic, wasting
-  ~42× the registers/VMEM.  Every intermediate is a full ``(TH, TW)`` plane.
+  last dim is not a power of two and would split every op into strided
+  lanes.  Every intermediate is a full ``(TH, TW)`` plane.
 - **Scalar parameters**: shape parameters are read through ``getp`` as true
-  scalars (SMEM), so the emitted program is one fused elementwise expression
+  scalars, so the emitted program is one fused elementwise expression
   per tile with zero parameter-broadcast traffic.
 
 Parameter order matches ``jax.tree_util.tree_flatten(scene)`` exactly (struct
@@ -74,6 +75,13 @@ def _len3(x, y, z):
 
 def _len2(x, y):
     return jnp.sqrt(x * x + y * y)
+
+
+def _nearest(x):
+    """Nearest integer as floor(x + 0.5): Triton has no round primitive.
+    Differs from ``jnp.round`` (half to even) only at exact .5 ties, where
+    a repetition fold is symmetric anyway."""
+    return jnp.floor(x + 0.5)
 
 
 def _smooth_mix(da, db, k, sign):
@@ -269,7 +277,7 @@ def _repeat(n, px, py, pz, getp, off):
 
     def fold(p, period):
         safe = jnp.where(period > 0.0, period, 1.0)
-        return jnp.where(period > 0.0, p - period * jnp.round(p / safe), p)
+        return jnp.where(period > 0.0, p - period * _nearest(p / safe), p)
 
     qx = fold(px, getp(off + nc))
     qy = fold(py, getp(off + nc + 1))
@@ -320,7 +328,7 @@ def compile_scene(scene: SDFNode):
 
     The tree walk happens once (Python time); the returned closure traces to
     one fused elementwise expression.  ``getp`` abstracts where parameters
-    live: an SMEM ref inside a Pallas kernel, the flat vector elsewhere.
+    live: scalars loaded inside a Pallas kernel, the flat vector elsewhere.
     """
 
     def soa_fn(px, py, pz, getp: GetP):
@@ -386,7 +394,7 @@ def _ray_sphere(n, ox, oy, oz, dx, dy, dz, getp, off):
     # sqrt, vs 5 for the raw quadratic — and C is clamped ≥ 0 at setup, so
     # (t+B)² + C can never round negative and the per-step max() guard
     # drops too.  Rounding differs from the point form by the documented
-    # ray-form ~1 ulp (razor-edge pixel budget, tests/test_tpu_parity.py).
+    # ray-form ~1 ulp (razor-edge pixel budget, tests/test_gpu_parity.py).
     cx, cy, cz, r = getp(off), getp(off + 1), getp(off + 2), getp(off + 3)
     qa, qb, qc = _quad_coeffs(ox - cx, oy - cy, oz - cz, dx, dy, dz)
     inv_qa = 1.0 / jnp.maximum(qa, 1e-24)
@@ -627,7 +635,7 @@ def compile_scene_ray(scene: SDFNode):
 # scalars-or-planes next to the distance.  Hard CSG selects the winning
 # side's channels, smooth CSG lerps them with the same ``h`` weight the
 # smooth-min applies to distances, subtraction keeps ``a``'s material.
-# Pure vector selects/FMAs — Mosaic-friendly; evaluated ONCE per ray at the
+# Pure vector selects/FMAs; evaluated ONCE per ray at the
 # hit point (the marches never touch it).
 # ---------------------------------------------------------------------------
 
@@ -713,7 +721,7 @@ def _emit_mat(node, px, py, pz, getp: GetP, off: int, default):
 
         def fold(p, period):
             safe = jnp.where(period > 0.0, period, 1.0)
-            return jnp.where(period > 0.0, p - period * jnp.round(p / safe), p)
+            return jnp.where(period > 0.0, p - period * _nearest(p / safe), p)
 
         qx = fold(px, getp(off + nc))
         qy = fold(py, getp(off + nc + 1))

@@ -1,13 +1,13 @@
-"""Multi-chip execution: tile-sharded rendering over a device mesh.
+"""Multi-device execution: tile-sharded rendering over a device mesh.
 
 The reference is single-process, single-GPU (SURVEY.md §2: no distributed
 code anywhere in its tree); its only parallel axis is the fragment grid.  The
-TPU-native scaling story keeps exactly that axis: **shard the pixel grid**
-across chips (rows of the image → row slabs per device) while scene / camera
-/ light / material parameters stay replicated, and all-reduce parameter
-gradients with ``psum`` over ICI (BASELINE north star).
+scaling story here keeps exactly that axis: **shard the pixel grid** across
+devices (rows of the image → row slabs per device) while scene / camera /
+light / material parameters stay replicated, and all-reduce parameter
+gradients with ``psum`` (NCCL between GPUs; BASELINE north star).
 
-Multi-host (DCN) execution lives in :mod:`sdf3d_tpu.parallel.launch`:
+Multi-host execution lives in :mod:`sdf3d_tpu.parallel.launch`:
 ``jax.distributed`` bootstrap, per-host row-shard construction of ray
 bundles/targets, and the process-0 side-effect gate — imported lazily here
 (``from sdf3d_tpu.parallel import launch``) because touching
@@ -20,12 +20,6 @@ from sdf3d_tpu.parallel.shard_render import (
     render_pallas_sharded,
     loss_and_grad_sharded,
 )
-from sdf3d_tpu.parallel.collectives import pallas_psum, pallas_psum_tree
-from sdf3d_tpu.parallel.tile_queue import (
-    TilePlan,
-    plan_tiles,
-    render_pallas_tiles,
-)
 
 __all__ = [
     "make_mesh",
@@ -33,9 +27,4 @@ __all__ = [
     "render_sharded",
     "render_pallas_sharded",
     "loss_and_grad_sharded",
-    "pallas_psum",
-    "pallas_psum_tree",
-    "TilePlan",
-    "plan_tiles",
-    "render_pallas_tiles",
 ]

@@ -1,11 +1,12 @@
-"""Multi-host (multi-process) execution: the DCN axis of the BASELINE scaling
-story.
+"""Multi-host (multi-process) execution: the cross-host axis of the BASELINE
+scaling story.
 
 The reference is a single-process desktop app (SURVEY.md §2: no multi-device
-code of any kind); the BASELINE scaling row targets 1 chip → 1 host (8 chips,
-ICI) → 4 hosts (32 chips, DCN across hosts).  Within one process, everything
-in parallel/shard_render.py already spans hosts *transparently* — `jax.devices()`
-is global and `shard_map`'s psum lowers to ICI within a slice and DCN across —
+code of any kind); the BASELINE scaling row targets 1 device → 1 host (8
+devices) → 4 hosts (32 devices).  Within one process, everything in
+parallel/shard_render.py already spans hosts *transparently* —
+`jax.devices()` is global and `shard_map`'s psum lowers to the collective
+library (NCCL between GPUs) —
 but a real multi-host run needs three things no single-process code path
 provides, and this module supplies them:
 
@@ -27,8 +28,7 @@ Verified by a real 2-process CPU ``jax.distributed`` test
 (tests/test_launch.py): subprocess-spawned workers, localhost coordinator,
 one fit step parity vs the single-process run, exactly one checkpoint writer.
 
-Launch recipe (one command per host; TPU pods discover topology
-automatically so all three arguments may be omitted there)::
+Launch recipe (one command per host)::
 
     # host 0                                  # host k
     python fit_job.py --coordinator h0:1234 \\
@@ -58,10 +58,9 @@ def initialize(coordinator_address: str | None = None,
                **kwargs) -> None:
     """Bootstrap multi-process JAX (idempotent).
 
-    On TPU pods all arguments are discovered from the environment, so a bare
-    ``initialize()`` suffices; on CPU/GPU clusters pass the coordinator
-    ``host:port``, the process count, and this process's id.  Must run
-    before the first JAX computation on every process.
+    On CPU/GPU clusters pass the coordinator ``host:port``, the process
+    count, and this process's id (nothing discovers them for you).  Must
+    run before the first JAX computation on every process.
     """
     # NOTE: must not touch jax.devices()/process_count() here — any backend
     # query initializes XLA and makes jax.distributed.initialize illegal.

@@ -1,9 +1,10 @@
 """Device-mesh construction helpers.
 
-One logical axis — ``"tiles"`` — data-parallel over image row-slabs.  On a
-multi-host v5p slice the compiled program is the same: ``jax.devices()``
-spans hosts and `shard_map` lowers the ``psum`` to ICI within a slice and DCN
-across hosts (SURVEY.md §5).  The multi-host *runtime* pieces — distributed
+One logical axis — ``"tiles"`` — data-parallel over image row-slabs.  A 1-D
+mesh suits GPUs joined all-to-all by NVLink: every device reaches every
+other at the same rate.  Across hosts the compiled program is the same:
+``jax.devices()`` spans hosts and `shard_map` lowers the ``psum`` to the
+collective library (SURVEY.md §5).  The multi-host *runtime* pieces — distributed
 bootstrap, per-host data construction, primary-only side effects — live in
 :mod:`sdf3d_tpu.parallel.launch`.
 """

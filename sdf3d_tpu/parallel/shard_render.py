@@ -1,17 +1,18 @@
 """Tile-sharded rendering and psum-reduced gradients (`shard_map` over a mesh).
 
-Data parallelism over pixels — the TPU analogue of the reference's implicit
-per-fragment parallelism (``main.cpp:4-5``, ``voxel_fragment.frag:160``),
-made explicit over a device mesh:
+Data parallelism over pixels — the multi-device form of the reference's
+implicit per-fragment parallelism (``main.cpp:4-5``,
+``voxel_fragment.frag:160``), made explicit over a device mesh:
 
 - the image's **rows** are sharded over the ``"tiles"`` axis (row slabs keep
-  the kernel's (8, 128)-aligned layout intact in both H and W);
+  whole kernel tiles in both H and W);
 - scene / camera / light / material pytrees are **replicated** (a few dozen
   scalars — broadcast once, never touched again);
 - each device marches only its own rays; no communication in the forward
   pass at all;
 - inverse rendering all-reduces the parameter gradients with one ``psum``
-  over ICI — the only collective in the workload (BASELINE north star).
+  (NCCL on GPUs) — the only collective in the workload (BASELINE north
+  star).
 """
 
 from __future__ import annotations
@@ -135,49 +136,19 @@ def render_pallas_sharded(
     interleaved: bool = False,
     planar: bool = False,
     layout: str | None = None,
-    policy: str = "round_robin",
-    work=None,
 ) -> jnp.ndarray:
-    """Fused-kernel sharded render.  Returns ``(H, W, 3)`` (kernel-native
+    """Fused-kernel sharded render.  Returns ``(H, W, 3)`` (planar
     ``(3, H, W)`` when ``planar=True``).
 
-    ``layout`` selects the sharding explicitly: ``"contiguous"`` /
-    ``"interleaved"`` row layouts, ``"tiles"`` (the load-balanced 2-D tile
-    queue, parallel/tile_queue.py, with ``policy``/``work`` as in
-    ``plan_tiles``), or ``"auto"`` — tiles once the mesh is large enough
-    that row layouts fall under the scaling bar (n ≥ 16, SCALING.jsonl) and
-    the image divides into tiles, else interleaved when divisible, else
-    contiguous.  ``None`` keeps the legacy ``interleaved`` flag.
+    ``layout`` selects the row layout explicitly: ``"contiguous"`` /
+    ``"interleaved"``, or ``"auto"`` — interleaved when the height divides
+    into ``n_devices × tile_h`` blocks, else contiguous.  ``None`` keeps the
+    ``interleaved`` flag.
     """
     n = mesh.shape[tile_axis]
     if layout is not None:
-        # Tile-queue reassembly gathers the full global tile stack, so it is
-        # single-host only (fit.py's _resolve_layout applies the same guard).
-        single_host = jax.process_count() == 1
         if layout == "auto":
-            if (
-                n >= 16
-                and single_host
-                and config.height % pc.tile_h == 0
-                and config.width % pc.tile_w == 0
-            ):
-                layout = "tiles"
-            elif config.height % (n * pc.tile_h) == 0:
-                layout = "interleaved"
-            else:
-                layout = "contiguous"
-        if layout == "tiles":
-            if not single_host:
-                raise ValueError(
-                    "layout='tiles' is single-host (the gather/reassembly "
-                    "needs the full tile stack); use a row layout across hosts"
-                )
-            from sdf3d_tpu.parallel.tile_queue import render_pallas_tiles
-
-            return render_pallas_tiles(
-                scene, camera, light, mat, config, mesh, pc,
-                policy=policy, work=work, planar=planar,
-            )
+            layout = "interleaved" if config.height % (n * pc.tile_h) == 0 else "contiguous"
         if layout not in ("contiguous", "interleaved"):
             raise ValueError(f"unknown layout {layout!r}")
         interleaved = layout == "interleaved"
@@ -266,19 +237,15 @@ def _render_pallas_sharded_rows(
     return out if planar else jnp.transpose(out, (1, 2, 0))
 
 
-def fused_loss_and_grad_sharded(
-    vag_fn: Callable[..., tuple],
-    mesh: Mesh,
-    allreduce: str = "psum",
-):
+def fused_loss_and_grad_sharded(vag_fn: Callable[..., tuple], mesh: Mesh):
     """Mesh-parallelize a per-slab ``(loss, grads)`` function.
 
     ``vag_fn(scene, origins_slab, directions_slab, target_slab)`` returns the
     slab's summed loss *and* its gradients directly (e.g. the fused Pallas
     loss+grad kernel, ops/fit_kernel.py — no jax AD at this level).  Loss and
-    gradients are all-reduced over the mesh, so every device holds identical
+    gradients are ``psum``-ed over the mesh, so every device holds identical
     replicated values; the optimizer then runs replicated with no further
-    communication (the all-reduce is the workload's only collective).
+    communication (the psum is the workload's only collective).
     """
 
     @functools.partial(
@@ -294,20 +261,12 @@ def fused_loss_and_grad_sharded(
     )
     def shard_fn(scene_, o_slab, d_slab, target_slab):
         loss, grads = vag_fn(scene_, o_slab, d_slab, target_slab)
-        loss = jax.lax.psum(loss, tile_axis)
-        from sdf3d_tpu.parallel.collectives import allreduce_tree
-
-        grads = allreduce_tree(grads, allreduce, mesh.shape[tile_axis])
-        return loss, grads
+        return jax.lax.psum((loss, grads), tile_axis)
 
     return shard_fn
 
 
-def loss_and_grad_sharded(
-    loss_fn: Callable[..., jnp.ndarray],
-    mesh: Mesh,
-    allreduce: str = "psum",
-):
+def loss_and_grad_sharded(loss_fn: Callable[..., jnp.ndarray], mesh: Mesh):
     """Wrap a per-slab loss into a mesh-parallel value+grad with psum'd grads.
 
     ``loss_fn(scene, origins_slab, directions_slab, target_slab)`` must
@@ -322,4 +281,4 @@ def loss_and_grad_sharded(
     def vag_fn(scene_, o_slab, d_slab, target_slab):
         return jax.value_and_grad(loss_fn)(scene_, o_slab, d_slab, target_slab)
 
-    return fused_loss_and_grad_sharded(vag_fn, mesh, allreduce)
+    return fused_loss_and_grad_sharded(vag_fn, mesh)

@@ -4,8 +4,8 @@ Assembles camera → sphere-trace → normals → soft shadow (+AO) → shade, t
 per-fragment program of ``/root/reference/Code/shader/voxel_fragment.frag:160-211``
 re-expressed as one jit-compiled array program over the whole image.  The
 pixel grid is simply the output array's index space (the reference needs a
-geometry-shader fullscreen quad for this, ``voxel_geometry.geom:26-52``; on
-TPU it is an iota).
+geometry-shader fullscreen quad for this, ``voxel_geometry.geom:26-52``; here
+it is an iota).
 
 This module is the *reference semantics* path: simple, obviously correct, and
 differentiable end-to-end.  The Pallas-fused fast path (``ops/``) is validated
@@ -192,11 +192,9 @@ def render_banded(
     The whole-image XLA march keeps every ray stepping until the worst ray
     in the image converges; banding shrinks that coupling to ``band_rows``
     rows per march.  This is the fast path for scene families whose SDF
-    evaluation is matmul/gather-shaped (NeuralSDF, VoxelGrid) — XLA's
-    full-batch MLP beats the fused matrix kernel on MXU utilization, and
-    banding recovers most of the early-exit advantage (measured: 104 →
-    73 ms for a 64-hidden neural scene at 720p, vs 156 ms for the fused
-    neural kernel).  For analytic scenes use the Pallas engine.
+    evaluation is matmul/gather-shaped (NeuralSDF, VoxelGrid) — XLA runs
+    the full-batch MLP as matrix products, and banding recovers most of the
+    early-exit advantage.  For analytic scenes use the Pallas engine.
     """
     origins, directions = camera_rays(camera, config.width, config.height, config.ray_mode)
     return render_rays_banded(
@@ -251,10 +249,9 @@ def render_aux_banded(
 
     The XLA counterpart of ``ops.render_kernel_forward``'s aux outputs, for
     scene families whose SDF evaluation is gather/matmul-shaped (VoxelGrid,
-    NeuralSDF) — Mosaic cannot lower their per-lane gathers (only 2-D
-    same-shape take-along-axis, probed 2026-08; see docs/performance.md
-    §Grid scenes), while XLA gathers natively and row-banding recovers the
-    early-exit win.  Lets ``render_pallas`` serve every scene family behind
+    NeuralSDF) — the scene compiler has no emitter for per-lane gathers or
+    weight matrices (docs/performance.md §Grid scenes), while XLA gathers
+    natively and row-banding recovers the early-exit win.  Lets ``render_pallas`` serve every scene family behind
     one differentiable API.
     """
     from sdf3d_tpu.march import ambient_occlusion, soft_shadow
@@ -312,9 +309,8 @@ def render_batch(
     ``cameras`` is a Camera pytree with a leading batch axis on every leaf
     (stack poses with ``jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
     *cams)``).  Frames run sequentially on-device via ``lax.map`` — the
-    animation/turntable/serving fast path: per-frame host dispatch costs
-    milliseconds on relay backends (docs/architecture.md, dispatch
-    discipline), so N frames per round trip is the TPU-native shape.
+    animation/turntable/serving fast path: one host dispatch for N frames
+    (docs/architecture.md, dispatch discipline).
 
     ``pc``: optional PallasRenderConfig for the pallas engine (tile shape /
     interpret-mode overrides — required to run this path on CPU).

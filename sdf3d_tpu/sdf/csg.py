@@ -10,7 +10,7 @@ for inverse rendering where the hard ``min`` has a kink.
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.sdf.node import SDFNode, as_f32

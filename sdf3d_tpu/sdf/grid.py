@@ -5,8 +5,8 @@ The reference is named "SDF3D" and renders *analytic* fields only
 the voxel model family the name suggests: a regular grid of SDF samples,
 trilinearly interpolated, with every sample a differentiable parameter.
 That turns inverse rendering (fit.py) into free-form shape recovery — the
-grid is the classic discrete precursor of neural SDFs, and on TPU its
-evaluation is a fully vectorized gather + lerp chain.
+grid is the classic discrete precursor of neural SDFs, and its evaluation
+is a fully vectorized gather + lerp chain.
 
 Design notes:
 
@@ -23,15 +23,16 @@ Design notes:
   distance to the box, so far-away rays march at full speed and the field
   stays continuous across the boundary.
 - The XLA render/diff/sharded paths support grids end-to-end (gather is
-  native XLA).  The fused Pallas kernel does **not** — Mosaic currently
-  lowers only 2-D same-shape gathers, not arbitrary 3-D indexed loads —
-  so ``compile_scene`` raises its standard "no Pallas emitter" error for
-  grid scenes; use the XLA engine (``render`` / ``render_diff``).
+  native XLA).  The fused Pallas kernel does **not** — its scene compiler
+  emits elementwise code over scalar parameters and has no 3-D indexed
+  load — so ``compile_scene`` raises its standard "no Pallas emitter"
+  error for grid scenes, and ``render_pallas`` delegates them to the
+  banded XLA path.
 """
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.sdf.node import SDFNode, as_f32, vlength_safe

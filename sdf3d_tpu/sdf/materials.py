@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.lighting import Material, material

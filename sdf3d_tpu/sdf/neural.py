@@ -1,11 +1,11 @@
-"""Neural SDF: an MLP distance field as a scene node (MXU model family).
+"""Neural SDF: an MLP distance field as a scene node (matrix-unit model family).
 
 The retrieved literature (PAPERS.md — IGR-style geometric initialization,
 differentiable neural-SDF rendering) motivates the third model family beside
-analytic CSG and voxel grids: a small MLP ``f(p) -> distance``.  On TPU this
-is the family that engages the **MXU** — every SDF evaluation is a chain of
-matmuls over the ray batch, which XLA tiles onto the systolic array (the
-analytic families are pure-VPU elementwise code).
+analytic CSG and voxel grids: a small MLP ``f(p) -> distance``.  This is the
+family that engages the matrix units — every SDF evaluation is a chain of
+matmuls over the ray batch (the analytic families are pure elementwise
+code).
 
 - **Geometric initialization** (Gropp et al. 2020, "Implicit Geometric
   Regularization"): hidden layers ~ N(0, sqrt(2/fan_in)), final layer mean
@@ -16,20 +16,20 @@ analytic families are pure-VPU elementwise code).
   a neural model of an authored shape; after that, ``fit_scene`` fine-tunes
   it from images like any other scene pytree.
 - Engines: full support on the XLA paths (render / render_diff / sharded /
-  fit).  The fused Pallas kernel's scene compiler stores parameters as SMEM
-  scalars — the wrong home for weight matrices — so grid scenes raise its
-  standard no-emitter error; neural scenes use the XLA engine, where XLA
-  already fuses the MLP into MXU matmuls.
+  fit).  The fused Pallas kernel's scene compiler loads parameters as
+  scalars — the wrong home for weight matrices — so neural scenes raise its
+  standard no-emitter error and use the XLA engine, where the MLP runs as
+  matrix products.
 
 Matmul precision is a static knob on the node (see :class:`NeuralSDF`):
-JAX's default TPU matmul truncates to bfloat16 (~3e-3 field error — at the
-edge of the ε = 0.01 surface band), so the default is 3-pass ``"high"``
-(2.7e-5, ~half the cost of ``"highest"``).
+JAX's default float32 matmul precision may round operands (TF32 on GPUs,
+about three decimal digits — at the edge of the ε = 0.01 surface band), so
+the default asks for ``"high"``.
 """
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,11 +44,10 @@ class NeuralSDF(SDFNode):
     ``weights`` / ``biases``: tuples of layer parameters, shapes
     ``(3, H), (H, H), ..., (H, 1)`` and ``(H,), ..., (1,)``.
     ``beta``: softplus sharpness (static-ish scalar leaf; ~100 ≈ smooth ReLU).
-    ``precision``: MXU matmul precision (static).  Measured on a distilled
-    64-hidden model: ``"high"`` (3-pass bf16) matches ``"highest"`` (6-pass)
-    to 2.7e-5 — far inside the ε = 0.01 surface band — at about half the
-    MXU cost, so it is the default; ``"default"`` (1-pass bf16) errs ~3e-3,
-    usable but close to the band.
+    ``precision``: matmul precision (static), passed to ``jnp.dot``.
+    ``"high"`` is the default; ``"highest"`` is full float32;
+    ``"default"`` lets the backend round operands (TF32 on GPUs), usable
+    but close to the ε = 0.01 surface band.
     """
 
     weights: tuple

@@ -5,7 +5,7 @@ The reference renderer hard-codes its scene as GLSL functions
 ``planeSDF`` composed by ``sceneSDF = min(plane, sphere)``.  Here the scene is a
 *pytree* of dataclass nodes instead: the tree **structure** is static (baked
 into the XLA trace) while every numeric field is a differentiable JAX leaf.
-This is the TPU-native analogue — one traced, fully-fused expression per scene,
+This is the array-program analogue — one traced, fully-fused expression per scene,
 with gradients w.r.t. every shape parameter for free.
 
 Conventions
@@ -59,11 +59,11 @@ def vdot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def mat_vec(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Apply a (3,3) (or (4,4)) matrix to vectors ``v`` of shape (..., N).
 
-    Implemented as a broadcast multiply + reduce on the VPU rather than
-    ``jnp.matmul``: a K=3 matmul is a terrible fit for the 128×128 MXU and —
-    worse — JAX's default matmul precision truncates operands to bfloat16 on
-    TPU, which costs ~3 decimal digits on every ray direction.  The explicit
-    sum stays in float32.
+    Implemented as a broadcast multiply + reduce rather than
+    ``jnp.matmul``: a K=3 matmul is a poor fit for the matrix units and
+    JAX's default matmul precision may round operands (TF32 on GPUs), which
+    costs ~3 decimal digits on every ray direction.  The explicit sum stays
+    in float32.
     """
     return jnp.sum(M * v[..., None, :], axis=-1)
 
@@ -71,7 +71,7 @@ def mat_vec(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 class SDFNode:
     """Mixin base for every SDF scene-graph node.
 
-    Concrete nodes are ``flax.struct.dataclass`` pytrees; this mixin only
+    Concrete nodes are ``sdf3d_tpu.pytree.dataclass`` pytrees; this mixin only
     supplies the evaluation protocol and CSG operator sugar:
 
     ``a | b``  hard union (``min``),   ``a & b``  intersection (``max``),

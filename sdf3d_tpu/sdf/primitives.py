@@ -10,7 +10,7 @@ distance) except where noted.
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 
@@ -200,8 +200,8 @@ def _mandelbulb_de(qx, qy, qz, iterations: int, bailout: float = 4.0):
     ``sin/cos(8\alpha)`` terms come from three angle doublings
     ``(c, s) -> (c^2 - s^2, 2cs)`` of the *algebraic* sines/cosines
     ``cos\theta = y/rho, sin\theta = k/rho, cos\phi = x/k, sin\phi = z/k`` (k = sqrt(x^2+z^2)) — so
-    the whole estimator is mul/add/sqrt/rsqrt/log, every op Mosaic lowers
-    (no transcendental trig, kernel-safe).  The escape-time derivative
+    the whole estimator is mul/add/sqrt/rsqrt/log, every op the kernel
+    backends lower (no transcendental trig, kernel-safe).  The escape-time derivative
     accumulates ``dr <- 8 rho^7 dr + 1`` and the distance is the standard
     Hubbard-Douady estimate ``0.5 log(rho) rho / dr`` — a conservative
     underestimate of true distance, i.e. sphere-trace safe (validated by
@@ -216,7 +216,7 @@ def _mandelbulb_de(qx, qy, qz, iterations: int, bailout: float = 4.0):
     wx, wy, wz = qx, qy, qz
     dr = jnp.ones_like(qx)
     r_kept = jnp.full_like(qx, eps)
-    active = jnp.ones_like(qx)  # f32 0/1 mask (Mosaic i1-carry discipline)
+    active = jnp.ones_like(qx)  # f32 0/1 mask (the kernels' mask discipline)
     b2 = f32(bailout * bailout)
     for _ in range(iterations):
         m = wx * wx + wy * wy + wz * wz

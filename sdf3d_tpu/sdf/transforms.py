@@ -8,7 +8,7 @@ differentiable w.r.t. its parameters (offsets, rotation vectors, scales).
 
 from __future__ import annotations
 
-import flax.struct as struct
+from sdf3d_tpu import pytree as struct
 import jax.numpy as jnp
 
 from sdf3d_tpu.sdf.node import SDFNode, as_f32, mat_vec, vlength

@@ -3,7 +3,7 @@
 The reference renders with ``gl->plot(sh, nu::MONOCULAR)``
 (``/root/reference/Code/src/main.cpp:50,95``) — Neutrino's projection-mode
 switch, of which only the monocular mode is exercised.  This module supplies
-the TPU-native projection-mode surface: a stereo camera-pair constructor and
+the projection-mode surface: a stereo camera-pair constructor and
 a one-dispatch stereo renderer (both eyes rendered in a single ``lax.map``
 batch — dispatch discipline, docs/architecture.md).
 

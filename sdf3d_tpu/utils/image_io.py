@@ -1,7 +1,7 @@
 """Minimal image output: PNG (pure stdlib zlib) and PPM writers.
 
 The reference displays frames in a GLFW window via Neutrino
-(``/root/reference/Code/src/main.cpp:95``); the TPU-native framework returns
+(``Code/src/main.cpp:95`` in the reference); this framework returns
 device arrays and serializes them — no windowing stack, no image library
 dependency.
 """

@@ -65,7 +65,7 @@ def main() -> None:
         "losses": [float(x) for x in result.losses],
         "radius": float(result.scene.b.radius),
         "steps_run": int(result.steps_run),
-        "ckpt_state_written": os.path.exists(os.path.join(ckpt, "state.msgpack")),
+        "ckpt_state_written": os.path.exists(os.path.join(ckpt, "state.npz")),
     }
     with open(os.path.join(outdir, f"out_p{pid}.json"), "w") as f:
         json.dump(out, f)

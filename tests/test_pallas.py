@@ -1,8 +1,8 @@
 """Fused Pallas kernel: parity with the XLA path and custom-VJP gradients.
 
 Runs in Pallas interpreter mode on CPU (SURVEY.md §4: distributed/kernel
-logic tested without TPU hardware); the same kernel compiles on a real chip
-with ``interpret=False``.
+logic tested without the accelerator); the same kernel compiles for the GPU
+through Triton with ``interpret=False`` (tests/test_gpu_parity.py).
 """
 
 import dataclasses
@@ -178,7 +178,7 @@ class TestKernelParity:
 
     def test_param_change_no_new_structure_needed(self):
         """Same tree structure, different values — runs through the same
-        compiled kernel (values are SMEM inputs)."""
+        compiled kernel (values are runtime inputs)."""
         a, *_ = render_pallas_aux(CFG, s.reference_scene(), CAM, LIGHT, MAT, PC)
         scene2 = s.sdf.union(
             s.sdf.ground_plane(), s.sdf.sphere(center=(0.3, 0.4, 0.0), radius=0.25)
@@ -225,9 +225,10 @@ class TestKernelGradients:
 
 
 class TestFusedBackwardKernel:
-    """The fused Pallas backward (ops/render_bwd_kernel.py) must produce the
-    same gradients as the XLA planar backward it replaced on the default
-    (shadow grad == "detach") path."""
+    """The backward at the kernels' parameter-vector boundary (scene-program
+    emitters, tiled like the fit kernel) must produce the same gradients as
+    the same shading expression driven by ``scene.distance`` over the whole
+    image — the route of scenes without a kernel emitter."""
 
     @pytest.mark.smoke
     @pytest.mark.slow
@@ -417,7 +418,7 @@ class TestFusedLossGradKernel:
         assert not fused_l2_eligible(CFG, scene, loss="multiscale", levels=4, pc=PC_EXACT)
 
     def test_multiscale_matches_ad(self):
-        """Fused in-tile MXU pyramid == XLA pixel_loss('multiscale'),
+        """Fused in-tile pooling pyramid == XLA pixel_loss('multiscale'),
         including padded (odd-size) images and their recursive cropping."""
         from sdf3d_tpu.fit import pixel_loss
         from sdf3d_tpu.ops.fit_kernel import l2_loss_and_grads

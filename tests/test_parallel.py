@@ -233,155 +233,6 @@ class TestShardedPallasGradients:
         np.testing.assert_array_equal(np.asarray(y[16:24]), np.asarray(x[8:16]))
 
 
-class TestTileQueue:
-    """Load-balanced 2-D tile-queue sharding (parallel/tile_queue.py) — the
-    ≥16-chip answer to the scaling bar (SCALING.jsonl)."""
-
-    @pytest.mark.parametrize("policy", ["round_robin", "balanced"])
-    @pytest.mark.parametrize("hw", [(96, 256), (88, 256)])
-    def test_plan_covers_every_tile_once(self, policy, hw):
-        H, W = hw
-        from sdf3d_tpu.parallel.tile_queue import plan_tiles
-
-        nh, nw = H // 8, W // 128
-        work = np.arange(nh * nw, dtype=np.float64).reshape(nh, nw) ** 2
-        plan = plan_tiles(H, W, 8, 128, 8, policy, work)
-        assert plan.rows.shape == plan.cols.shape == (8, -(-nh * nw // 8))
-        seen = set()
-        for d in range(8):
-            for t in range(plan.tiles_per_device):
-                r, c = float(plan.rows[d, t]), float(plan.cols[d, t])
-                if r == H:
-                    continue  # dummy
-                assert r % 8 == 0 and c % 128 == 0
-                seen.add((r, c))
-        assert len(seen) == nh * nw  # every tile exactly once
-        # gather_index inverts the assignment for every real tile.
-        for bi in range(nh):
-            for bj in range(nw):
-                g = int(plan.gather_index[bi, bj])
-                d, s = divmod(g, plan.tiles_per_device)
-                assert float(plan.rows[d, s]) == bi * 8
-                assert float(plan.cols[d, s]) == bj * 128
-
-    def test_balanced_plan_balances_work(self):
-        from sdf3d_tpu.parallel.tile_queue import plan_tiles
-
-        rng = np.random.default_rng(0)
-        work = rng.exponential(size=(12, 2))
-        per_dev = {}
-        for policy in ("round_robin", "balanced"):
-            plan = plan_tiles(96, 256, 8, 128, 4, policy, work)
-            loads = np.zeros(4)
-            for d in range(4):
-                for t in range(plan.tiles_per_device):
-                    r, c = plan.rows[d, t], plan.cols[d, t]
-                    if r == 96:
-                        continue
-                    loads[d] += work[int(r) // 8, int(c) // 128]
-            per_dev[policy] = loads.max()
-        assert per_dev["balanced"] <= per_dev["round_robin"] + 1e-9
-
-    @pytest.mark.parametrize("hw", [(96, 256), (88, 256)])
-    def test_tiles_forward_matches_unsharded(self, mesh8, hw):
-        """Tile-queue sharded render == unsharded kernel (interpret; 1-ulp
-        tolerance for the shard_map fusion context, as with row layouts) —
-        including the non-divisible case where dummy tiles pad the count."""
-        from sdf3d_tpu.ops.render_kernel import render_kernel_forward
-        from sdf3d_tpu.parallel import render_pallas_sharded
-        from sdf3d_tpu.parallel.tile_queue import render_pallas_tiles
-
-        H, W = hw
-        cfg = dataclasses.replace(CFG, width=W, height=H)
-        pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True)
-        ref, _, _, _ = render_kernel_forward(
-            s.reference_scene(), CAM, LIGHT, MAT, cfg, pc
-        )
-        img = render_pallas_tiles(
-            s.reference_scene(), CAM, LIGHT, MAT, cfg, mesh8, pc
-        )
-        np.testing.assert_allclose(
-            np.asarray(ref), np.asarray(img), atol=1e-6, rtol=1e-6
-        )
-        # The shard_render dispatcher routes layout="tiles" identically.
-        img2 = render_pallas_sharded(
-            s.reference_scene(), CAM, LIGHT, MAT, cfg, mesh8, pc, layout="tiles"
-        )
-        np.testing.assert_array_equal(np.asarray(img), np.asarray(img2))
-
-    @pytest.mark.parametrize("policy", ["round_robin", "balanced"])
-    def test_tiles_fit_matches_unsharded(self, mesh8, policy):
-        """fit_scene(shard_layout='tiles') reproduces the unsharded fused
-        fit trajectory (losses and parameters)."""
-        from sdf3d_tpu.fit import FitConfig, fit_scene
-
-        cfg = dataclasses.replace(CFG, width=128, height=48)
-        target = np.asarray(s.render(s.reference_scene(), CAM, LIGHT, MAT, cfg))
-        scene0 = s.sdf.union(
-            s.sdf.ground_plane(),
-            s.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25),
-        )
-        common = dict(
-            steps=2, learning_rate=1e-2, log_every=1, engine="pallas",
-            pallas_interpret=True, pallas_tile=(8, 128),
-        )
-        ref = fit_scene(target, scene0, CAM, LIGHT, MAT, cfg, FitConfig(**common))
-        got = fit_scene(
-            target, scene0, CAM, LIGHT, MAT, cfg,
-            FitConfig(**common, shard_layout="tiles", shard_policy=policy),
-            mesh=mesh8,
-        )
-        np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-5)
-        np.testing.assert_allclose(
-            float(got.scene.b.radius), float(ref.scene.b.radius), rtol=1e-5
-        )
-
-    def test_replan_preserves_trajectory(self, mesh8):
-        """Dynamic re-balancing (FitConfig.replan_every): re-planning the
-        balanced work-lists from the current scene every step must leave
-        the fit trajectory IDENTICAL — any equal-count plan computes the
-        same loss/gradients (partition invariance), so a re-plan is purely
-        a load-balance refresh and can never change results."""
-        from sdf3d_tpu.fit import FitConfig, fit_scene
-
-        cfg = dataclasses.replace(CFG, width=128, height=48)
-        target = np.asarray(s.render(s.reference_scene(), CAM, LIGHT, MAT, cfg))
-        scene0 = s.sdf.union(
-            s.sdf.ground_plane(),
-            s.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25),
-        )
-        common = dict(
-            steps=3, learning_rate=1e-2, log_every=1, engine="pallas",
-            pallas_interpret=True, pallas_tile=(8, 128),
-            shard_layout="tiles", shard_policy="balanced",
-        )
-        ref = fit_scene(
-            target, scene0, CAM, LIGHT, MAT, cfg, FitConfig(**common), mesh=mesh8
-        )
-        got = fit_scene(
-            target, scene0, CAM, LIGHT, MAT, cfg,
-            FitConfig(**common, replan_every=1), mesh=mesh8,
-        )
-        np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-6)
-        np.testing.assert_allclose(
-            float(got.scene.b.radius), float(ref.scene.b.radius), rtol=1e-6
-        )
-
-    def test_estimate_tile_work_ranks_object_tiles_highest(self):
-        from sdf3d_tpu.parallel.tile_queue import (
-            estimate_tile_work,
-            pool_work_to_tiles,
-        )
-
-        cfg = dataclasses.replace(CFG, width=256, height=96)
-        steps = estimate_tile_work(s.reference_scene(), CAM, cfg, LIGHT, scale=4)
-        work = pool_work_to_tiles(steps, 96, 256, 8, 128)
-        assert work.shape == (12, 2)
-        # Sky tiles (top rows) march a handful of steps; object/ground tiles
-        # march deep — the estimate must reflect that ordering.
-        assert work[6:].mean() > 1.5 * work[:2].mean()
-
-
 class TestGraftEntry:
     @pytest.mark.slow
     def test_dryrun_multichip(self):
@@ -396,227 +247,45 @@ class TestGraftEntry:
         assert callable(fn) and len(args) == 4
 
 
-class TestPallasCollectives:
-    """Ring all-reduce kernel (interpret mode on the CPU mesh)."""
+def _psum_rows(mesh, num, x):
+    """All-reduce row ``d`` of ``x`` from device ``d`` with ``lax.psum``
+    under ``shard_map`` — the gradient all-reduce of the sharded fits."""
+    import functools
+
+    from jax.sharding import PartitionSpec as PS
+
+    from sdf3d_tpu.parallel.mesh import tile_axis
+
+    @functools.partial(
+        jax.shard_map, mesh=mesh, in_specs=PS(tile_axis, None),
+        out_specs=PS(tile_axis, None), check_vma=False,
+    )
+    def f(local):
+        return jax.lax.psum(local[0], tile_axis)[None]
+
+    return np.asarray(f(x))
+
+
+class TestPsumAllReduce:
+    """The sharded fits all-reduce loss and gradients with ``lax.psum``
+    (NCCL on GPUs); on the CPU mesh it must equal the plain sum."""
 
     def test_ring_allreduce_matches_sum(self, mesh8):
-        import functools
-
-        from jax.sharding import PartitionSpec as PS
-
-        from sdf3d_tpu.parallel import pallas_psum
-        from sdf3d_tpu.parallel.mesh import tile_axis
-
         x = jnp.arange(8 * 37, dtype=jnp.float32).reshape(8, 37)
-
-        @functools.partial(
-            jax.shard_map, mesh=mesh8, in_specs=PS(tile_axis, None),
-            out_specs=PS(tile_axis, None), check_vma=False,
-        )
-        def f(local):
-            return pallas_psum(local[0], 8, interpret=True)[None]
-
-        out = f(x)
+        out = _psum_rows(mesh8, 8, x)
         np.testing.assert_allclose(
-            np.asarray(out), np.broadcast_to(np.asarray(jnp.sum(x, 0)), (8, 37)), rtol=1e-6
+            out, np.broadcast_to(np.asarray(jnp.sum(x, 0)), (8, 37)), rtol=1e-6
         )
-
-    def test_ring_allreduce_large_payload(self, mesh8):
-        """Payload spanning both overlap streams (multiple sublane rows and
-        a ragged tail) reduces exactly."""
-        import functools
-
-        from jax.sharding import PartitionSpec as PS
-
-        from sdf3d_tpu.parallel import pallas_psum
-        from sdf3d_tpu.parallel.mesh import tile_axis
-
-        rng = np.random.default_rng(7)
-        x = jnp.asarray(rng.standard_normal((8, 3 * 1024 + 13)), jnp.float32)
-
-        @functools.partial(
-            jax.shard_map, mesh=mesh8, in_specs=PS(tile_axis, None),
-            out_specs=PS(tile_axis, None), check_vma=False,
-        )
-        def f(local):
-            return pallas_psum(local[0], 8, interpret=True)[None]
-
-        out = np.asarray(f(x))
-        want = np.broadcast_to(np.asarray(jnp.sum(x, 0)), out.shape)
-        np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
-
-    @pytest.mark.parametrize("num", [2, 4, 8])
-    def test_ring_schedule_overlaps_comm_and_compute(self, num):
-        """The overlap evidence: the kernel emits its ops from ring_schedule
-        in program order (Mosaic preserves side-effecting op order), and in
-        that schedule every accumulate except the final one executes while
-        the OTHER stream's RDMA is outstanding (started, not yet waited) —
-        compute hides wire time rather than serializing after it."""
-        from sdf3d_tpu.parallel.collectives import ring_schedule
-
-        ops = ring_schedule(num)
-        outstanding = {"A": 0, "B": 0}
-        waited = {"A": -1, "B": -1}
-        accums = overlapped = 0
-        for op, stream, step in ops:
-            other = "B" if stream == "A" else "A"
-            if op == "start":
-                outstanding[stream] += 1
-            elif op == "wait":
-                outstanding[stream] -= 1
-                assert step == waited[stream] + 1  # lockstep, in order
-                waited[stream] = step
-            else:
-                assert waited[stream] == step  # never read before arrival
-                accums += 1
-                overlapped += int(outstanding[other] > 0)
-            assert 0 <= outstanding[stream] <= 1  # double-buffered: ≤1 in flight
-        # Each stream accumulates num-1 chunks; all but the very last land
-        # inside the other stream's RDMA window.
-        assert accums == 2 * (num - 1)
-        assert overlapped == accums - 1
-        # Every started RDMA is waited (no dangling DMA at kernel exit).
-        assert outstanding == {"A": 0, "B": 0}
-
-    def test_ring_allreduce_tree_single_launch(self, mesh8):
-        """pallas_psum_tree flattens the pytree into ONE ring launch; the
-        reduced tree must match leaf-wise psum."""
-        import functools
-
-        from jax.sharding import PartitionSpec as PS
-
-        from sdf3d_tpu.parallel.collectives import pallas_psum_tree
-        from sdf3d_tpu.parallel.mesh import tile_axis
-
-        rng = np.random.default_rng(3)
-        tree = {
-            "w": jnp.asarray(rng.standard_normal((8, 4, 5)), jnp.float32),
-            "b": jnp.asarray(rng.standard_normal((8,)), jnp.float32),
-            "nested": (jnp.asarray(rng.standard_normal((8, 130)), jnp.float32),),
-        }
-
-        @functools.partial(
-            jax.shard_map, mesh=mesh8,
-            in_specs=(jax.tree_util.tree_map(lambda _: PS(tile_axis), tree),),
-            out_specs=jax.tree_util.tree_map(lambda _: PS(tile_axis), tree),
-            check_vma=False,
-        )
-        def f(local):
-            local = jax.tree_util.tree_map(lambda x: x[0], local)
-            red = pallas_psum_tree(local, 8, interpret=True)
-            return jax.tree_util.tree_map(lambda x: x[None], red)
-
-        out = f(tree)
-        for k, leaf in (("w", tree["w"]), ("b", tree["b"]), ("nested", tree["nested"][0])):
-            got = out[k][0] if k != "nested" else out[k][0][0]
-            want = jnp.sum(leaf, axis=0)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-
-    def test_two_ring_reductions_one_program(self, mesh8):
-        """Two launches of the SAME ring kernel in ONE compiled program used
-        to collide on the hardcoded barrier-semaphore id (collectives.py
-        round-4 caveat).  Distinct ``collective_id``s are now threaded
-        through pallas_psum/pallas_psum_tree; the combined program must
-        reproduce ``lax.psum`` twice."""
-        import functools
-
-        from jax.sharding import PartitionSpec as PS
-
-        from sdf3d_tpu.parallel.collectives import pallas_psum, pallas_psum_tree
-        from sdf3d_tpu.parallel.mesh import tile_axis
-
-        rng = np.random.default_rng(11)
-        x = jnp.asarray(rng.standard_normal((8, 37)), jnp.float32)
-        y = jnp.asarray(rng.standard_normal((8, 256)), jnp.float32)
-
-        @jax.jit
-        @functools.partial(
-            jax.shard_map, mesh=mesh8, in_specs=(PS(tile_axis, None),) * 2,
-            out_specs=(PS(tile_axis, None),) * 2, check_vma=False,
-        )
-        def f(xl, yl):
-            a = pallas_psum(xl[0], 8, interpret=True, collective_id=2)
-            b = pallas_psum(yl[0], 8, interpret=True, collective_id=3)
-            # Feed a through b's reduction result so XLA cannot reorder the
-            # two launches apart (data dependence mirrors a two-term step).
-            return (a + 0.0 * b[:37])[None], b[None]
-
-        a, b = f(x, y)
-        np.testing.assert_allclose(
-            np.asarray(a[0]), np.asarray(jnp.sum(x, 0)), rtol=1e-5, atol=1e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(b[0]), np.asarray(jnp.sum(y, 0)), rtol=1e-5, atol=1e-5
-        )
-
-        # Tree form: two tree reductions in one program, distinct ids.
-        @jax.jit
-        @functools.partial(
-            jax.shard_map, mesh=mesh8, in_specs=(PS(tile_axis, None),) * 2,
-            out_specs=(PS(tile_axis, None),) * 2, check_vma=False,
-        )
-        def g(xl, yl):
-            t1 = pallas_psum_tree({"x": xl[0]}, 8, interpret=True, collective_id=4)
-            t2 = pallas_psum_tree({"y": yl[0]}, 8, interpret=True, collective_id=5)
-            return t1["x"][None], t2["y"][None]
-
-        a, b = g(x, y)
-        np.testing.assert_allclose(
-            np.asarray(a[0]), np.asarray(jnp.sum(x, 0)), rtol=1e-5, atol=1e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(b[0]), np.asarray(jnp.sum(y, 0)), rtol=1e-5, atol=1e-5
-        )
-
-    @pytest.mark.slow
-    def test_loss_and_grad_with_ring_allreduce(self, mesh8):
-        o, d = camera_rays(CAM, CFG.width, CFG.height)
-        target = s.render(s.reference_scene(), CAM, LIGHT, MAT, CFG)
-        scene = s.sdf.union(
-            s.sdf.ground_plane(), s.sdf.sphere(center=(0.0, 0.4, 0.0), radius=0.25)
-        )
-
-        def loss_fn(scene_, o_, d_, tgt_):
-            img = render_rays_diff(scene_, o_, d_, LIGHT, MAT, CFG)
-            return jnp.sum((img - tgt_) ** 2)
-
-        l_psum, g_psum = loss_and_grad_sharded(loss_fn, mesh8)(scene, o, d, target)
-        l_ring, g_ring = loss_and_grad_sharded(loss_fn, mesh8, allreduce="pallas_ring_interpret")(
-            scene, o, d, target
-        )
-        assert float(l_ring) == pytest.approx(float(l_psum), rel=1e-6)
-        gp, _ = fu.ravel_pytree(g_psum)
-        gr, _ = fu.ravel_pytree(g_ring)
-        np.testing.assert_allclose(np.asarray(gr), np.asarray(gp), rtol=1e-5, atol=1e-5)
 
 
 class TestRsAgCollective:
-    """Bandwidth-optimal reduce-scatter + all-gather ring
-    (parallel/collectives.py): 2P(N−1)/N bytes per link vs the latency
-    ring's (N−1)·P."""
-
-    def _psum(self, mesh, num, x, **kw):
-        import functools
-
-        from jax.sharding import PartitionSpec as PS
-
-        from sdf3d_tpu.parallel import pallas_psum
-        from sdf3d_tpu.parallel.mesh import tile_axis
-
-        @functools.partial(
-            jax.shard_map, mesh=mesh, in_specs=PS(tile_axis, None),
-            out_specs=PS(tile_axis, None), check_vma=False,
-        )
-        def f(local):
-            return pallas_psum(local[0], num, interpret=True, **kw)[None]
-
-        return np.asarray(f(x))
+    """Payload sizes and mesh sizes of the psum all-reduce."""
 
     @pytest.mark.parametrize("n_elems", [1, 130, 20000, 70001])
     def test_matches_sum_ragged_payloads(self, mesh8, n_elems):
         rng = np.random.default_rng(n_elems)
         x = jnp.asarray(rng.standard_normal((8, n_elems)), jnp.float32)
-        out = self._psum(mesh8, 8, x, algorithm="rs_ag")
+        out = _psum_rows(mesh8, 8, x)
         want = np.broadcast_to(np.asarray(jnp.sum(x, 0)), out.shape)
         np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
 
@@ -625,120 +294,6 @@ class TestRsAgCollective:
         mesh = make_mesh(jax.devices("cpu"), n_devices=num)
         rng = np.random.default_rng(num)
         x = jnp.asarray(rng.standard_normal((num, 5000)), jnp.float32)
-        out = self._psum(mesh, num, x, algorithm="rs_ag")
+        out = _psum_rows(mesh, num, x)
         want = np.broadcast_to(np.asarray(jnp.sum(x, 0)), out.shape)
         np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
-
-    def test_auto_picks_rs_ag_for_large_payloads(self, mesh8):
-        """auto == rs_ag above the threshold, ring below — both exact."""
-        from sdf3d_tpu.parallel.collectives import _rs_ag_threshold
-
-        rng = np.random.default_rng(0)
-        for n in (_rs_ag_threshold(8) + 5, 37):
-            x = jnp.asarray(rng.standard_normal((8, n)), jnp.float32)
-            out = self._psum(mesh8, 8, x)
-            want = np.broadcast_to(np.asarray(jnp.sum(x, 0)), out.shape)
-            np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
-
-    @pytest.mark.parametrize("num", [2, 4, 8])
-    def test_rs_ag_schedule_overlaps_comm_and_compute(self, num):
-        """Same schedule-level overlap property as the latency ring: every
-        accum/copy except the final one executes while the OTHER stream's
-        RDMA is outstanding."""
-        from sdf3d_tpu.parallel.collectives import rs_ag_schedule
-
-        ops = rs_ag_schedule(num)
-        outstanding = {"A": 0, "B": 0}
-        waited = {"A": -1, "B": -1}
-        consumed = overlapped = 0
-        for op, stream, k in ops:
-            other = "B" if stream == "A" else "A"
-            if op == "start":
-                outstanding[stream] += 1
-            elif op == "wait":
-                outstanding[stream] -= 1
-                assert k == waited[stream] + 1  # in order, no skipped step
-                waited[stream] = k
-            else:
-                assert waited[stream] == k  # never read before arrival
-                assert op == ("accum" if k < num - 1 else "copy")
-                consumed += 1
-                overlapped += int(outstanding[other] > 0)
-            assert 0 <= outstanding[stream] <= 1  # double-buffered: ≤1 in flight
-        # 2(num-1) global steps per stream: N−1 reduce-scatter accumulates
-        # then N−1 all-gather copies.
-        assert consumed == 2 * 2 * (num - 1)
-        assert overlapped == consumed - 1
-        assert outstanding == {"A": 0, "B": 0}
-
-    @pytest.mark.parametrize("num", [2, 4, 8])
-    def test_rs_ag_backpressure_schedule_is_safe(self, num):
-        """The back-pressure ack placement, proven at the schedule level (the
-        kernel emits its ops verbatim from ``rs_ag_schedule(backpressure=
-        True)``) — the same treatment the overlap property gets, replacing
-        the round-4 'dead code in comments' state:
-
-        1. dropping the bp ops recovers the plain schedule exactly (acks
-           change ordering constraints, never the data flow);
-        2. every slot-reusing ``start`` (step k ≥ 2 reuses step k−2's slot)
-           is guarded by exactly one ``bp_wait`` after the previous
-           same-slot start — the sender is never ≥2 slots ahead of
-           consumption acks;
-        3. each ``bp_signal`` for step k comes after that step's
-           accum/copy (never signal before consume) and strictly before the
-           ``bp_wait`` of step k+2 — so the lockstep program order itself
-           proves the wait can always be satisfied (deadlock-free even with
-           arbitrary device skew, since signals only ever come earlier).
-        """
-        from sdf3d_tpu.parallel.collectives import rs_ag_schedule
-
-        plain = rs_ag_schedule(num)
-        bp = rs_ag_schedule(num, backpressure=True)
-        total = 2 * (num - 1)
-
-        # 1. Core op sequence unchanged.
-        assert [o for o in bp if o[0] not in ("bp_wait", "bp_signal")] == plain
-
-        pos = {(op, st, k): i for i, (op, st, k) in enumerate(bp)}
-        for stream in ("A", "B"):
-            starts = {k: i for i, (op, st, k) in enumerate(bp)
-                      if op == "start" and st == stream}
-            consumes = {k: i for i, (op, st, k) in enumerate(bp)
-                        if op in ("accum", "copy") and st == stream}
-            for k in range(total):
-                if k >= 2:
-                    # 2. Ack-guarded slot reuse: exactly one bp_wait between
-                    # the two same-slot starts, immediately guarding start k.
-                    w = pos[("bp_wait", stream, k)]
-                    assert starts[k - 2] < w < starts[k]
-                    n_between = sum(
-                        1 for i, (op, st, kk) in enumerate(bp)
-                        if op == "bp_wait" and st == stream
-                        and kk % 2 == k % 2 and starts[k - 2] < i < starts[k]
-                    )
-                    assert n_between == 1
-                    # 3b. The matching signal (step k−2) precedes the wait.
-                    assert pos[("bp_signal", stream, k - 2)] < w
-                if k + 2 < total:
-                    # 3a. Never signal before consuming.
-                    assert consumes[k] < pos[("bp_signal", stream, k)]
-            # No acks for steps whose slot is never reused (the final two).
-            assert ("bp_signal", stream, total - 1) not in pos
-            assert ("bp_signal", stream, total - 2) not in pos
-
-    @pytest.mark.parametrize("num", [2, 4, 8])
-    def test_wire_traffic_is_bandwidth_optimal(self, num):
-        """Traffic accounting straight from the schedules: rs_ag moves
-        2(N−1)/N of the payload per link; the latency ring moves (N−1)×."""
-        from sdf3d_tpu.parallel.collectives import ring_schedule, rs_ag_schedule
-
-        P = 1.0  # normalized payload size
-        # rs_ag: each start sends one chunk = P / (2 streams · N chunks).
-        starts = sum(1 for op, _, _ in rs_ag_schedule(num) if op == "start")
-        rs_ag_traffic = starts * P / (2 * num)
-        assert rs_ag_traffic == pytest.approx(2 * (num - 1) / num * P)
-        # latency ring: each start forwards a whole half.
-        starts = sum(1 for op, _, _ in ring_schedule(num) if op == "start")
-        ring_traffic = starts * P / 2
-        assert ring_traffic == pytest.approx((num - 1) * P)
-        assert rs_ag_traffic <= ring_traffic
